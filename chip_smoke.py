@@ -9,11 +9,17 @@ Phases (any failure exits non-zero and prints no result):
   2. load the 2^16 Pallas SRS and the committed Kimchi fixture
      (n = 2^16, B = 32), build the verifier index on the card, and run one
      verify while recording the inputs each kernel wrapper receives;
-  3. hold each kernel (K1-K6) against its plain PyTorch version on those
-     recorded main-path inputs (exact: equal canonical limbs) and time both;
+  3. hold each kernel against its plain PyTorch version (exact: equal
+     canonical limbs): K1-K6 on every recorded main-path input, K2 also on
+     a seeded B = 33, T = 5 input in each field, and K7 (no caller in the
+     system) on the recorded K6 inputs with q's Z row made explicit plus a
+     seeded set with identity lanes on each curve; time each kernel at
+     every recorded shape (device ms per verify) and the plain version at
+     the largest; time the product-latency probe (K2's critical-path
+     floor);
   4. the 2^16-point MSM with seeded scalars: pmsm (K3-K6) vs the plain MSM;
   5. the main path: launch counters set to 0, one batched verify (must
-     accept, every kernel launched), then a tampered copy (must reject);
+     accept, K1-K6 each launched), then a tampered copy (must reject);
   6. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -41,10 +47,12 @@ OUT = ROOT / "chiprun_out"
 # multiply-add is counted as 2 operations against it).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# One field product in the kernels: a 4-word CIOS Montgomery product is
-# 32 64x64->128 products, each 4 32-bit multiply-adds with low and high
-# halves: 256 multiply-adds, 512 operations.
+# One 256-bit Montgomery product as 32-bit multiply-adds: 8 x 8 low and
+# high halves for a * b and as many for m * p, 256 multiply-adds, 512
+# operations. An unreduced 512-bit product (K2's MDS terms) or a lone
+# reduction is half of that.
 OPS_PER_PRODUCT = 512
+OPS_PER_HALF = 256
 LIMB_BYTES = 8
 L = 22
 
@@ -56,7 +64,9 @@ KERNEL_INFO = {
     "pdouble": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:281"),
     "padd_select": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:292"),
     "padd_mixed_select2": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:335"),
+    "padd_mixed_select": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:311"),
 }
+OFF_PATH = {"padd_mixed_select": "none (no caller in the JAX package)"}
 
 
 def log(*a):
@@ -100,8 +110,7 @@ class Recorder:
             self.orig[(mod, attr)] = fn
 
             def wrapped(*args, _fn=fn, _name=name):
-                key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
-                key += tuple(a if isinstance(a, int) else a.name for a in args if not isinstance(a, torch.Tensor))
+                key = input_key(args)
                 self.calls[_name][key] = self.calls[_name].get(key, 0) + 1
                 if key not in self.inputs[_name]:
                     self.inputs[_name][key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
@@ -142,7 +151,9 @@ def kernel_work(name: str, args) -> tuple[float, float]:
         T, B = adds.shape[0], state.numel() // (3 * L)
         nbytes = (state.numel() + adds.numel() + T * B * 3 * L) * LIMB_BYTES
         nbytes += (len(ps.round_constants) * 3 + 9) * 4 * 8  # Montgomery constants
-        return nbytes, T * B * len(ps.round_constants) * (3 * 4 + 9) * OPS_PER_PRODUCT
+        # a round: 3 sboxes of 4 products, 9 unreduced MDS terms, 3 reductions
+        per_round = 12 * OPS_PER_PRODUCT + (9 + 3) * OPS_PER_HALF
+        return nbytes, T * B * len(ps.round_constants) * per_round
     p = args[1]
     n = p.shape[-1]
     point = 3 * L * LIMB_BYTES
@@ -155,7 +166,8 @@ def kernel_work(name: str, args) -> tuple[float, float]:
         return 3 * n * point + 4 * n, 14 * adds * OPS_PER_PRODUCT
     keep, q_inf = args[3], args[4]
     adds = int(((keep == 0) & (q_inf == 0)).sum())
-    return n * (2 * point + 2 * L * LIMB_BYTES + 8), 13 * adds * OPS_PER_PRODUCT
+    q_rows = args[2].shape[0]  # 2 (K6) or 3 (K7)
+    return n * (2 * point + q_rows * L * LIMB_BYTES + 8), 13 * adds * OPS_PER_PRODUCT
 
 
 def lanes(name: str, key: tuple) -> int:
@@ -177,13 +189,83 @@ def canon_out(name: str, spec_or_curve, out):
     return ffl.canon(field, out.permute(0, 2, 1))  # rows (3, L, N) -> (3, N, L)
 
 
-def check_kernels(rec: Recorder) -> list[dict]:
-    """Each kernel vs its plain version on every recorded main-path input;
-    time both at the recorded shape with the most lanes."""
+def input_key(args) -> tuple:
+    """A kernel call's key, as Recorder keys it: tensor shapes, then names."""
+    import torch
+
+    key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+    return key + tuple(a if isinstance(a, int) else a.name for a in args if not isinstance(a, torch.Tensor))
+
+
+def seeded_point_rows(curve, n: int, seed: int, identity_every: int, projective: bool):
+    """(3, 22, n) rows on the CPU: 8 seeded multiples of the generator,
+    scaled by a random Z (or Z = 1), with the identity (0:1:0) every few lanes."""
+    import torch
+
+    from mina_bridge_tpu_torch.curves.host import mul
+    from mina_bridge_tpu_torch.fields import ffl
+
+    rng = np.random.default_rng(seed)
+    p = curve.base.p
+    base = [mul(curve, int(rng.integers(1, 1 << 62)), curve.generator) for _ in range(8)]
+    cols = ([], [], [])
+    for i in range(n):
+        if i % identity_every == 0:
+            vals = (0, 1, 0)
+        else:
+            x, y = base[i % 8]
+            z = int.from_bytes(rng.bytes(32), "little") % p if projective else 1
+            vals = (x * z % p, y * z % p, z)
+        for col, v in zip(cols, vals):
+            col.append(v)
+    return torch.stack([ffl.from_ints(curve.base, c) for c in cols]).permute(0, 2, 1).contiguous()
+
+
+def extra_inputs(rec: Recorder, seed: int, dev) -> dict:
+    """Inputs beyond the recorded main path. K7, which the verify never
+    calls, gets every recorded K6 input with q's Z row made explicit
+    (1 - q_inf) as its recorded inputs (timed, zero calls), and a seeded
+    set per curve with identity lanes in p and q and both masks mixed.
+    K2 also gets B = 33, T = 5 in each field (a block with one live
+    transcript). Returns {kernel: [argument tuples]} of the checked-only
+    sets."""
+    import torch
+
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+    from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.hash.poseidon_params import poseidon_spec
+
+    rng = np.random.default_rng(seed)
+    k2 = []
+    for name in ("fp", "fq"):
+        ps = poseidon_spec(name)
+        B, T = 33, 5
+        vals = [int.from_bytes(rng.bytes(32), "little") % ps.field.p for _ in range(3 * B + 2 * T * B)]
+        x = ffl.from_ints(ps.field, vals, dev)
+        k2.append((ps, x[: 3 * B].reshape(B, 3, L), x[3 * B :].reshape(T, 2, B, L)))
+    k7 = [(c, p, pk.with_z(q2, q_inf), keep, q_inf) for c, p, q2, keep, q_inf in rec.inputs["padd_mixed_select2"].values()]
+    rec.inputs["padd_mixed_select"] = {input_key(a): a for a in k7}
+    seeded = []
+    for i, curve in enumerate((PALLAS, VESTA)):
+        n = 4096
+        p = seeded_point_rows(curve, n, seed + 2 * i, 7, True).to(dev)
+        q = seeded_point_rows(curve, n, seed + 2 * i + 1, 5, False).to(dev)
+        keep = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)
+        seeded.append((curve, p, q, keep, (q[2, 0] == 0).to(torch.int32)))
+    return {"transcript_blocks": k2, "padd_mixed_select": seeded}
+
+
+def check_kernels(rec: Recorder, extra: dict, probe: dict) -> list[dict]:
+    """Each kernel vs its plain version on every recorded input and the
+    extra inputs; each kernel timed at every recorded shape, the plain
+    version at the one with the most lanes. K2's row also gets its
+    critical-path floor from the probe."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
     from mina_bridge_tpu_torch.fields import chain_kernel
+    from mina_bridge_tpu_torch.fields.params import FP
     from mina_bridge_tpu_torch.hash import transcript_kernel as tk
 
     fns = {
@@ -193,48 +275,95 @@ def check_kernels(rec: Recorder) -> list[dict]:
         "pdouble": (pk.pdouble, pk.pdouble_plain),
         "padd_select": (pk.padd_select, pk.padd_select_plain),
         "padd_mixed_select2": (pk.padd_mixed_select2, pk.padd_mixed_select2_plain),
+        "padd_mixed_select": (pk.padd_mixed_select, pk.padd_mixed_select_plain),
     }
     rows = []
     for name, (kern, plain) in fns.items():
-        sets = rec.inputs[name]
-        if not sets:
+        timed = rec.inputs[name]
+        if not timed:
             raise RuntimeError(f"{name}: the verify never called this kernel")
+        sets = [*timed.values(), *extra.get(name, [])]
         err = 0
-        for args in sets.values():
+        for args in sets:
             a = canon_out(name, args[0], kern(*args))
             b = canon_out(name, args[0], plain(*args))
             err = max(err, int((a - b).abs().max()))
         torch.cuda.synchronize()
         if err != 0:
             raise RuntimeError(f"{name}: kernel and plain version disagree (max abs limb error {err})")
-        key = max(sets, key=lambda k: lanes(name, k))
-        args = sets[key]
-        ms = cuda_ms(lambda: kern(*args), 20)
+        ms_at = {key: cuda_ms(lambda a=args: kern(*a), 20) for key, args in timed.items()}
+        calls = rec.calls.get(name, {})
+        key = max(timed, key=lambda k: lanes(name, k))
+        args = timed[key]
+        ms = ms_at[key]
         plain_ms = cuda_ms(lambda: plain(*args), 2)
         nbytes, ops = kernel_work(name, args)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
         src, replaces = KERNEL_INFO[name]
-        rows.append(
-            {
-                "name": name,
-                "route": "cuda",
-                "source": src,
-                "replaces": replaces,
-                "launches": 0,
-                "max_abs_err": err,
-                "matched": err == 0,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-                "shape": [list(s) for s in key if isinstance(s, tuple)],
-                "shapes_checked": len(sets),
-                "main_path_calls": sum(rec.calls[name].values()),
-            }
-        )
-        log(f"{name}: exact on {len(sets)} input shapes; {ms:.4f} ms (plain {plain_ms:.3f} ms) at {key}")
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": err,
+            "matched": err == 0,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "device_ms_per_verify": sum(calls.get(k, 0) * t for k, t in ms_at.items()),
+            "path": OFF_PATH.get(name, "kimchi verify"),
+            "shape": [list(s) for s in key if isinstance(s, tuple)],
+            "shapes_checked": len(sets),
+            "ms_by_shape": [[[list(s) for s in k if isinstance(s, tuple)], calls.get(k, 0), t] for k, t in ms_at.items()],
+            "main_path_calls": sum(calls.values()),
+        }
+        if name == "transcript_blocks":
+            # dependent products a block: 3 in the sbox, 1 for the MDS row
+            ps, _, adds = args
+            per_block = 4 * len(ps.round_constants)
+            lat = probe["mul32_" + ("fp" if ps.field.p == FP.p else "fq")]
+            row["dependent_products_per_block"] = per_block
+            row["critical_path_floor_ms"] = adds.shape[0] * per_block * lat * 1e-6
+        rows.append(row)
+        log(f"{name}: exact on {len(sets)} input sets; {ms:.4f} ms (plain {plain_ms:.3f} ms) at {key}")
     return rows
+
+
+def probe_latency(dev) -> dict:
+    """ns per dependent field product (csrc/probe.cu: one warp, each lane a
+    chain of products), for fld::mul and fld::mul32 in each field; each
+    chain's result is checked against Python ints."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.params import FP, FQ
+
+    lib = kernels.lib("probe")
+    iters = 1 << 14
+    rng = np.random.default_rng(7)
+    out = {}
+    for fid, (fname, spec) in enumerate((("fp", FP), ("fq", FQ))):
+        xs = [int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(64)]
+        x = ffl.from_ints(spec, xs, dev).contiguous()
+        want = [xs[i] * pow(xs[32 + i], iters, spec.p) % spec.p for i in range(32)]
+        for kind, label in enumerate(("mul", "mul32")):
+            res = torch.empty((32, L), dtype=torch.int64, device=dev)
+
+            def run(kind=kind, res=res, fid=fid, x=x):
+                rc = lib.mbt_product_chain(fid, kind, x.data_ptr(), res.data_ptr(), iters, kernels.stream())
+                if rc != 0:
+                    raise RuntimeError(f"product probe failed to launch: cudaError {rc}")
+
+            ms = cuda_ms(run, 3)
+            if ffl.to_ints(spec, res.cpu()) != want:
+                raise RuntimeError(f"product probe {label} ({fname}) computed a wrong chain")
+            out[f"{label}_{fname}"] = ms * 1e6 / iters
+    log("ns per dependent product (one warp):", {k: round(v, 1) for k, v in out.items()})
+    return out
 
 
 def main() -> int:
@@ -297,8 +426,9 @@ def main() -> int:
     if ok is not True:
         raise RuntimeError("the honest fixture was rejected")
 
-    # ---- 3. kernels vs plain versions ----
-    rows = check_kernels(rec)
+    # ---- 3. the product-latency probe; kernels vs plain versions ----
+    report["probe_ns_per_product"] = probe = probe_latency(dev)
+    rows = check_kernels(rec, extra_inputs(rec, args.seed, dev), probe)
 
     # ---- 4. MSM over the full SRS ----
     n = srs["g"].shape[0]
@@ -327,7 +457,7 @@ def main() -> int:
             counts = dict(kernels.launches)
         if ok is not True:
             raise RuntimeError("the honest batch was rejected")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")
     for row in rows:

@@ -37,6 +37,14 @@ int run(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n) {
     case 4:
       map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe&) { return fld::mul_b3<F>(x); });
       return 0;
+    case 5:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::mul32<F>(x, y); });
+      return 0;
+    case 6:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) {
+        return fld::mds_row<F>(x, y, y, y, x, x);
+      });
+      return 0;
   }
   return 1;
 }
@@ -56,7 +64,8 @@ void pow_chain(const int64_t* x, int64_t* out, const int32_t* bits, int nbits, i
 
 }  // namespace
 
-// op: 0 mul, 1 square (of a), 2 add, 3 sub, 4 multiply a by 15.
+// op: 0 mul, 1 square (of a), 2 add, 3 sub, 4 multiply a by 15, 5 mul32
+// (the 32-bit-limb product), 6 mds_row: a b + b b + a a reduced once.
 extern "C" int mbt_host_binop(int field, int op, const int64_t* a, const int64_t* b, int64_t* out,
                               int64_t n) {
   return field == 0 ? run<0>(op, a, b, out, n) : run<1>(op, a, b, out, n);

@@ -1,4 +1,4 @@
-// K3-K6: projective point arithmetic for the MSM, one thread per lane.
+// K3-K7: projective point arithmetic for the MSM, one thread per lane.
 //
 // Replaces the Pallas kernels of mina_bridge_tpu/curves/pallas_kernels.py
 // (all launched through _pallas_apply, BLOCK = 1024 lanes):
@@ -8,6 +8,8 @@
 //   K6 padd_mixed_select2 (body padd_mixed_select2_rows): keep_q ? q :
 //      (q_inf ? p : p +mixed q), RCB16 Alg 8, q given as (x, y) rows with
 //      Z = 1 - q_inf
+//   K7 padd_mixed_select  (body padd_mixed_select_rows): the same with a
+//      3-row q whose Z row is exactly 0 (identity) or 1 (affine)
 // All formulas are for a = 0, b3 = 3 * b = 15 (y^2 = x^3 + 5).
 //
 // Layout: the rows layout of the JAX package, (nrows, 22, N) int64 limbs
@@ -203,6 +205,28 @@ __global__ void padd_mixed_select2_kernel(const int64_t* __restrict__ p, const i
   store_pt<F>(padd_mixed_f<F>(pp, x2, y2), out, n, N);
 }
 
+template <int F>
+__global__ void padd_mixed_select_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
+                                         const int32_t* __restrict__ keep_q,
+                                         const int32_t* __restrict__ q_inf, int64_t* __restrict__ out,
+                                         int64_t N) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  if (keep_q[n]) {
+    store_pt<F>(load_pt<F>(q, n, N), out, n, N);
+    return;
+  }
+  const Pt pp = load_pt<F>(p, n, N);
+  if (q_inf[n]) {
+    store_pt<F>(pp, out, n, N);
+    return;
+  }
+  const int64_t cs = (int64_t)fld::REP_LIMBS * N;
+  const Fe x2 = fld::from_limbs<F>(q + n, N);
+  const Fe y2 = fld::from_limbs<F>(q + cs + n, N);
+  store_pt<F>(padd_mixed_f<F>(pp, x2, y2), out, n, N);
+}
+
 constexpr int THREADS = 128;
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -256,6 +280,20 @@ extern "C" int mbt_padd_mixed_select2(int field, const int64_t* p, const int64_t
       padd_mixed_select2_kernel<0><<<blocks_for(N), THREADS, 0, s>>>(p, q2, keep_q, q_inf, out, N);
     else
       padd_mixed_select2_kernel<1><<<blocks_for(N), THREADS, 0, s>>>(p, q2, keep_q, q_inf, out, N);
+  }
+  return (int)cudaGetLastError();
+}
+
+// q: (3, 22, N) int64 rows with a Z row of 0 or 1; keep_q, q_inf: (N,) int32.
+extern "C" int mbt_padd_mixed_select(int field, const int64_t* p, const int64_t* q,
+                                     const int32_t* keep_q, const int32_t* q_inf, int64_t* out,
+                                     int64_t N, void* stream) {
+  if (N > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (field == 0)
+      padd_mixed_select_kernel<0><<<blocks_for(N), THREADS, 0, s>>>(p, q, keep_q, q_inf, out, N);
+    else
+      padd_mixed_select_kernel<1><<<blocks_for(N), THREADS, 0, s>>>(p, q, keep_q, q_inf, out, N);
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
-"""K3-K6: the MSM's point kernels (rows layout) as hand-written CUDA.
+"""K3-K7: the MSM's point kernels (rows layout) as hand-written CUDA.
 
 Counterpart of mina_bridge_tpu/curves/pallas_kernels.py (padd, pdouble,
-padd_select, padd_mixed_select2, all through `_pallas_apply`). The CUDA
-kernels are in csrc/points.cu: one thread per lane, bounds-checked (see
-the note there on what bounds them).
+padd_select, padd_mixed_select2, padd_mixed_select, all through
+`_pallas_apply`). The CUDA kernels are in csrc/points.cu: one thread per
+lane, bounds-checked (see the note there on what bounds them).
 
-A point batch is (3, 22, N) int64: coordinates, limbs, lanes; the mixed
-add's q is (2, 22, N) (x, y) with Z = 1 - q_inf. Each wrapper runs its
+A point batch is (3, 22, N) int64: coordinates, limbs, lanes. K6's q is
+(2, 22, N) (x, y) with Z = 1 - q_inf; K7's q is (3, 22, N) with a Z row of
+exactly 0 or 1. Only K1-K6 are on the verify path: K7, like its JAX
+counterpart, has no caller in the system. Each wrapper runs its
 `*_plain` version (curves/curve.py formulas in plain torch ops) on a CPU
 tensor and launches its kernel on a CUDA tensor, or raises. The kernels
 write canonical limbs; the plain versions write REP limbs. Both mean the
@@ -30,6 +32,8 @@ __all__ = [
     "pdouble",
     "padd_select",
     "padd_mixed_select2",
+    "padd_mixed_select",
+    "with_z",
 ]
 
 
@@ -64,15 +68,24 @@ def padd_select_plain(c: CurveSpec, p, q, keep_q) -> torch.Tensor:
     return torch.where(keep_q != 0, q, padd_plain(c, p, q))
 
 
-def padd_mixed_select2_plain(c: CurveSpec, p, q2, keep_q, q_inf) -> torch.Tensor:
-    """keep_q ? (x, y, 1 - q_inf) : (q_inf ? p : p +mixed q)."""
-    q = _points(q2)
-    added = to_rows(cv.add_mixed(c, _points(p), q[:, 0], q[:, 1]))
-    res = torch.where(q_inf != 0, p, added)
+def with_z(q2: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+    """A 2-row (x, y) q -> 3 rows with Z = 1 - q_inf."""
     qz = torch.zeros_like(q2[0])
     qz[0] = 1 - (q_inf != 0).to(qz.dtype)
-    qproj = torch.cat([q2, qz.unsqueeze(0)], dim=0)
-    return torch.where(keep_q != 0, qproj, res)
+    return torch.cat([q2, qz.unsqueeze(0)], dim=0)
+
+
+def padd_mixed_select_plain(c: CurveSpec, p, q, keep_q, q_inf) -> torch.Tensor:
+    """keep_q ? q : (q_inf ? p : p +mixed q); q's Z row is 0 or 1 and unread."""
+    qp = _points(q)
+    added = to_rows(cv.add_mixed(c, _points(p), qp[:, 0], qp[:, 1]))
+    res = torch.where(q_inf != 0, p, added)
+    return torch.where(keep_q != 0, q, res)
+
+
+def padd_mixed_select2_plain(c: CurveSpec, p, q2, keep_q, q_inf) -> torch.Tensor:
+    """keep_q ? (x, y, 1 - q_inf) : (q_inf ? p : p +mixed q)."""
+    return padd_mixed_select_plain(c, p, with_z(q2, q_inf), keep_q, q_inf)
 
 
 # ---------------------------------------------------------------------------
@@ -122,4 +135,13 @@ def padd_mixed_select2(c: CurveSpec, p, q2, keep_q, q_inf) -> torch.Tensor:
         return padd_mixed_select2_plain(c, p, q2, keep_q, q_inf)
     return _launch(
         "padd_mixed_select2", "mbt_padd_mixed_select2", c, (p, q2), (keep_q, q_inf), p.shape[-1]
+    )
+
+
+def padd_mixed_select(c: CurveSpec, p, q, keep_q, q_inf) -> torch.Tensor:
+    """keep_q ? q : (q_inf ? p : p +mixed q) with a 3-row q (Z row 0 or 1)."""
+    if p.device.type == "cpu":
+        return padd_mixed_select_plain(c, p, q, keep_q, q_inf)
+    return _launch(
+        "padd_mixed_select", "mbt_padd_mixed_select", c, (p, q), (keep_q, q_inf), p.shape[-1]
     )

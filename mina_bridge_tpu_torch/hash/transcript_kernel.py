@@ -2,9 +2,10 @@
 
 Counterpart of mina_bridge_tpu/hash/transcript_kernel.py::transcript_blocks
 (Pallas grid (T,) carrying the sponge state in VMEM scratch). The CUDA
-kernel is csrc/transcript.cu: Hopper has no sequential grid, so one
-thread owns one transcript and loops over the T blocks (see the note
-there on what bounds it).
+kernel is csrc/transcript.cu: Hopper has no sequential grid, so a group
+of four lanes owns one transcript (one lane per state word, sharing the
+sbox outputs by warp shuffles) and loops over the T blocks, eight
+transcripts to a one-warp block (see the note there on what bounds it).
 
 `transcript_blocks` takes the ffl layout. On a CPU tensor it runs
 `transcript_blocks_plain` (add, then poseidon.permute, per block); on a

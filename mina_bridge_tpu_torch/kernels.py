@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each source in `csrc/` (pow_chain.cu, transcript.cu, points.cu; all
-include field.cuh) is compiled by `nvcc` for sm_90a into a shared library
+Each source in `csrc/` (pow_chain.cu, transcript.cu, points.cu, and
+probe.cu, a product-latency probe that no path calls; all include
+field.cuh) is compiled by `nvcc` for sm_90a into a shared library
 with a plain C interface, loaded with ctypes. Builds land in
 `<repo>/build/kernels/`, named by a hash of the sources, so a changed
 source is rebuilt and an unchanged one is reused. `build_all()` starts
@@ -43,10 +44,15 @@ SOURCES = {
         "mbt_pdouble": [_I, _V, _V, _L, _V],
         "mbt_padd_select": [_I, _V, _V, _V, _V, _L, _V],
         "mbt_padd_mixed_select2": [_I, _V, _V, _V, _V, _V, _L, _V],
+        "mbt_padd_mixed_select": [_I, _V, _V, _V, _V, _V, _L, _V],
     },
+    "probe": {"mbt_product_chain": [_I, _I, _V, _V, _I, _V]},
 }
 
-KERNELS = ("pow_const", "transcript_blocks", "padd", "pdouble", "padd_select", "padd_mixed_select2")
+KERNELS = (
+    "pow_const", "transcript_blocks", "padd", "pdouble", "padd_select", "padd_mixed_select2",
+    "padd_mixed_select",
+)
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions on
 the card. Exact: equal canonical limbs. Imports only the port, so it runs
 where JAX is not installed:
 
@@ -44,10 +44,13 @@ def test_pow_chain(dev, spec):
         assert torch.equal(ffl.canon(spec, got), ffl.canon(spec, chain_kernel.pow_const_plain(spec, inp, spec.p - 2)))
 
 
+@pytest.mark.parametrize("B", [1, 8, 33])
 @pytest.mark.parametrize("name", ["fp", "fq"])
-def test_transcript(dev, name):
+def test_transcript(dev, name, B):
+    """Lane groups partly filled (B = 1), one full warp (8) and a B that is
+    no multiple of 8 (33: a fifth block with one live transcript)."""
     ps = poseidon_spec(name)
-    B, T = 32, 4
+    T = 4
     st = ffl.from_ints(ps.field, _ints(ps.field.p, 3 * B, 2), dev).reshape(B, 3, 22)
     ad = ffl.from_ints(ps.field, _ints(ps.field.p, 2 * T * B, 3), dev).reshape(T, 2, B, 22)
     got = transcript_blocks(ps, st, ad)
@@ -87,6 +90,10 @@ def test_point_kernels(dev, curve):
         (
             pk.padd_mixed_select2(curve, p, q_aff[:2], keep, q_inf),
             pk.padd_mixed_select2_plain(curve, p, q_aff[:2], keep, q_inf),
+        ),
+        (
+            pk.padd_mixed_select(curve, p, q_aff, keep, q_inf),
+            pk.padd_mixed_select_plain(curve, p, q_aff, keep, q_inf),
         ),
     ]
     for got, want in pairs:

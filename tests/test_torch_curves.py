@@ -1,11 +1,10 @@
 """Port curve arithmetic against the JAX package: the point kernels'
-plain versions (K3-K6) vs the Pallas kernels' jnp bodies, with identity
+plain versions (K3-K7) vs the Pallas kernels' jnp bodies, with identity
 lanes and both masks. Exact: equal canonical limbs / equal affine points.
 The MSMs built on them are in test_torch_msm.py."""
 
 import random
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -53,8 +52,10 @@ def _jcanon_rows(t):
 
 
 def test_point_kernels_plain_match_pallas_bodies():
-    """K3-K6 plain versions vs the jnp bodies the JAX package runs on the
-    CPU, with identity p and q lanes and both masks."""
+    """K3-K7 plain versions vs the jnp bodies the JAX package runs on the
+    CPU, with identity p and q lanes, both masks, and K7's q with Z rows 0
+    and 1. The bodies run op by op (no jit): the same jnp computation,
+    without compiling each body as one XLA program."""
     rng = random.Random(5)
     p = _rows(rng, N, identity_lanes=(1,))
     q = _rows(rng, N, identity_lanes=(2, 5))
@@ -63,18 +64,17 @@ def test_point_kernels_plain_match_pallas_bodies():
     q_inf = (q_aff[2, 0] == 0).to(torch.int32)
     c = jhc.PALLAS
     cases = [
-        (pk.padd(PALLAS, p, q), jax.jit(jpk.padd_rows, static_argnums=0)(c, _jax(p), _jax(q))),
-        (pk.padd(PALLAS, p, p), jax.jit(jpk.padd_rows, static_argnums=0)(c, _jax(p), _jax(p))),
-        (pk.pdouble(PALLAS, p), jax.jit(jpk.pdouble_rows, static_argnums=0)(c, _jax(p))),
-        (
-            pk.padd_select(PALLAS, p, q, keep_q),
-            jax.jit(jpk.padd_select_rows, static_argnums=0)(c, _jax(p), _jax(q), _jax(keep_q)),
-        ),
+        (pk.padd(PALLAS, p, q), jpk.padd_rows(c, _jax(p), _jax(q))),
+        (pk.padd(PALLAS, p, p), jpk.padd_rows(c, _jax(p), _jax(p))),
+        (pk.pdouble(PALLAS, p), jpk.pdouble_rows(c, _jax(p))),
+        (pk.padd_select(PALLAS, p, q, keep_q), jpk.padd_select_rows(c, _jax(p), _jax(q), _jax(keep_q))),
         (
             pk.padd_mixed_select2(PALLAS, p, q_aff[:2], keep_q, q_inf),
-            jax.jit(jpk.padd_mixed_select2_rows, static_argnums=0)(
-                c, _jax(p), _jax(q_aff[:2]), _jax(keep_q), _jax(q_inf)
-            ),
+            jpk.padd_mixed_select2_rows(c, _jax(p), _jax(q_aff[:2]), _jax(keep_q), _jax(q_inf)),
+        ),
+        (
+            pk.padd_mixed_select(PALLAS, p, q_aff, keep_q, q_inf),
+            jpk.padd_mixed_select_rows(c, _jax(p), _jax(q_aff), _jax(keep_q), _jax(q_inf)),
         ),
     ]
     for got, want in cases:

@@ -133,7 +133,8 @@ def field_host_lib(tmp_path_factory):
 @pytest.mark.parametrize("fid,spec", [(0, FP), (1, FQ)], ids=IDS)
 def test_kernel_field_library_host_build(field_host_lib, fid, spec):
     """mul / square / add / sub / x15 / the K1 ladder of field.cuh (host
-    build) vs the plain torch ops, on canonical and on lazy REP inputs."""
+    build) vs the plain torch ops, on canonical and on lazy REP inputs;
+    K2's mul32 and lazy MDS row also vs Python ints, on edge values."""
     xs, ys = rand_elems(spec, 32, 4), rand_elems(spec, 32, 5)
     a = ffl.from_ints(spec, xs)
     b = ffl.from_ints(spec, ys)
@@ -158,6 +159,33 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
     out = torch.empty_like(a)
     field_host_lib.mbt_host_pow(fid, a.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(), 32)
     assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, chain_kernel.pow_const_plain(spec, a, e)).numpy())
+
+    # K2's product (op 5, the 32-bit-limb CIOS) and its lazy MDS row (op 6,
+    # a b + b b + a a reduced once) on edge values: 0, 1, p - 1, the values
+    # whose Montgomery words are 1 and p - 1 (the largest products the MDS
+    # sum can take), and lazy REP rows near 2^290.
+    p, r_inv = spec.p, pow(1 << 256, -1, spec.p)
+    edges = [0, 1, p - 1, r_inv, p - r_inv, (1 << 254) % p]
+    u32 = ffl.from_ints(spec, edges + rand_elems(spec, 10, 6))
+    v32 = ffl.from_ints(spec, edges[::-1] + rand_elems(spec, 10, 7))
+    top = torch.full((16, 22), (1 << 15) - 1, dtype=torch.int64)
+    top[1::2, :4] = 0
+    for u, v in ((u32, v32), (top, u32), (v32, top), (top, top.flip(0))):
+        u, v = u.contiguous(), v.contiguous()
+        xs_, ys_ = ([limbs_to_int(row) % p for row in t.numpy()] for t in (u, v))
+        for op, fn, want in (
+            (5, lambda s, t: ffl.mul(spec, s, t), [x * y % p for x, y in zip(xs_, ys_)]),
+            (
+                6,
+                lambda s, t: ffl.add(spec, ffl.add(spec, ffl.mul(spec, s, t), ffl.square(spec, t)), ffl.square(spec, s)),
+                [(x * y + y * y + x * x) % p for x, y in zip(xs_, ys_)],
+            ),
+        ):
+            out = torch.empty_like(u)
+            assert field_host_lib.mbt_host_binop(fid, op, u.data_ptr(), v.data_ptr(), out.data_ptr(), 16) == 0
+            assert (out < 8192).all()
+            assert canon_ints(spec, out) == want, op
+            assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, fn(u, v)).numpy()), op
 
 
 def test_device_selection_and_no_fallback():
