@@ -14,16 +14,21 @@ Phases (any failure exits non-zero and prints no result):
   4. the 2^16-point MSM with seeded scalars, recording K6's scan input:
      pmsm (K3-K6) vs the plain MSM;
   5. hold each kernel against its plain PyTorch version (exact: equal
-     canonical limbs): K1-K6 on every recorded main-path input; K2 also on
-     a seeded B = 33, T = 5 input in each field; K4 also at k = 1; the K6
-     scan also on the MSM's input and on seeded ragged scans per curve
-     (W G no multiple of the block, T = 1 and 3, identity lanes, segment
-     starts inside a chunk); K7 (no caller in the system) on the first step
-     of K6's recorded scan with q's Z row made explicit plus a seeded set
-     with identity lanes on each curve. Time each kernel at every recorded
+     canonical limbs): every kernel of the verify on every recorded
+     main-path input; K2 also on a seeded B = 33, T = 5 input in each
+     field; K4 also at k = 1; the K6 scan, K3's bucket weighting and
+     fix-up and K5's lane repair also on the MSM's inputs and on seeded
+     ragged inputs per curve (W G no multiple of the block, identity
+     points, segments across lanes; the weighting at D = 64 and 4096, the
+     repair at G = 16 and 4096); the one-step K5 (which the verify no
+     longer calls) on the first up-sweep level of the recorded repair and
+     seeded lanes; K7 (no caller in the system) on the first step of K6's
+     recorded scan with q's Z row made explicit plus a seeded set with
+     identity lanes on each curve. Time each kernel at every recorded
      shape (device ms per verify) and the plain version at the largest;
   6. the main path: launch counters set to 0, one batched verify (must
-     accept, K1-K6 each launched), then a tampered copy (must reject);
+     accept, every kernel of the path launched), then a tampered copy
+     (must reject);
   7. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -65,12 +70,18 @@ KERNEL_INFO = {
     "pow_const": ("mina_bridge_tpu_torch/csrc/pow_chain.cu", "mina_bridge_tpu/fields/chain_kernel.py:58"),
     "transcript_blocks": ("mina_bridge_tpu_torch/csrc/transcript.cu", "mina_bridge_tpu/hash/transcript_kernel.py:118"),
     "padd": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:267"),
+    "padd_weight_sum": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:267"),
+    "padd_fixup": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:267"),
     "pdouble": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:281"),
     "padd_select": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:292"),
+    "padd_select_scan": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:292"),
     "padd_mixed_select2": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:335"),
     "padd_mixed_select": ("mina_bridge_tpu_torch/csrc/points.cu", "mina_bridge_tpu/curves/pallas_kernels.py:311"),
 }
-OFF_PATH = {"padd_mixed_select": "none (no caller in the JAX package)"}
+OFF_PATH = {
+    "padd_mixed_select": "none (no caller in the JAX package)",
+    "padd_select": "none (the verify's lane repair is padd_select_scan)",
+}
 
 
 def log(*a):
@@ -98,8 +109,11 @@ class Recorder:
             (chain_kernel, "pow_const_rows", "pow_const"),
             (transcript_kernel, "transcript_blocks", "transcript_blocks"),
             (pk, "padd", "padd"),
+            (pk, "padd_weight_sum", "padd_weight_sum"),
+            (pk, "padd_fixup", "padd_fixup"),
             (pk, "pdouble", "pdouble"),
             (pk, "padd_select", "padd_select"),
+            (pk, "padd_select_scan", "padd_select_scan"),
             (pk, "padd_mixed_select2_scan", "padd_mixed_select2"),
         ]
         self.sites = [s for s in self.sites if only is None or s[2] in only]
@@ -159,9 +173,26 @@ def kernel_work(name: str, args) -> tuple[float, float]:
         # a round: 3 sboxes of 4 products, 9 unreduced MDS terms, 3 reductions
         per_round = 12 * OPS_PER_PRODUCT + (9 + 3) * OPS_PER_HALF
         return nbytes, T * B * len(ps.round_constants) * per_round
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+
+    point = 3 * L * LIMB_BYTES
+    if name == "padd_weight_sum":
+        # buckets 1..D read, one point a window written; 2 adds a bucket in
+        # the walks, log2 S doublings a chunk, 2 adds a tree merge and an add
+        # and a doubling below the root
+        W, D = args[1].shape[2], args[1].shape[3] - 1
+        K, _ = pk.weight_chunks(D)
+        S = D // K
+        products = 28 * D + 9 * K * (S.bit_length() - 1) + 28 * (K - 1) + 23 * max(K - 2, 0)
+        return W * (D + 1) * point, W * products * OPS_PER_PRODUCT
+    if name == "padd_fixup":
+        # three digits a lane; per fix a bucket and an inflow read, the bucket written
+        fixes = int(pk.fixup_need(args[3], args[2].shape[-1]).sum())
+        return args[3].shape[0] * args[2].shape[-1] * 3 * 8 + fixes * 3 * point, 14 * fixes * OPS_PER_PRODUCT
+    if name == "padd_select_scan":
+        return args[1].shape[2] * args[1].shape[3] * (2 * point + 4), 14 * lane_scan_adds(args[2]) * OPS_PER_PRODUCT
     p = args[1]
     n = p.shape[-1]
-    point = 3 * L * LIMB_BYTES
     if name == "padd":
         return 3 * n * point, 14 * n * OPS_PER_PRODUCT
     if name == "pdouble":
@@ -182,6 +213,20 @@ def kernel_work(name: str, args) -> tuple[float, float]:
     return n * (2 * point + q_rows * L * LIMB_BYTES + 8), 13 * adds * OPS_PER_PRODUCT
 
 
+def lane_scan_adds(flags) -> int:
+    """Adds the lane repair makes on these flags: an up-sweep merge adds
+    unless its right flag is set, a down-sweep merge unless its left flag
+    (as the up-sweep left it) is set."""
+    f = flags.cpu().numpy() != 0
+    adds, lefts = 0, []
+    while f.shape[-1] > 1:
+        left, right = f[..., 0::2], f[..., 1::2]
+        adds += int((~right).sum())
+        lefts.append(left)
+        f = left | right
+    return adds + sum(int((~left).sum()) for left in lefts)
+
+
 def lanes(name: str, key: tuple) -> int:
     """Elements, transcript blocks or point lanes of one recorded call."""
     if name == "pow_const":
@@ -190,6 +235,8 @@ def lanes(name: str, key: tuple) -> int:
         return key[1][0] * math.prod(key[0][:-2])
     if name == "padd_mixed_select2":
         return math.prod(key[2])  # scan positions, W * N
+    if name in ("padd_weight_sum", "padd_fixup", "padd_select_scan"):
+        return math.prod(key[0][2:])  # buckets or lanes, W * NB or W * G
     return key[0][-1]
 
 
@@ -201,8 +248,8 @@ def canon_out(name: str, spec_or_curve, out):
     if name in ("pow_const", "transcript_blocks"):
         return ffl.canon(field, out)
     if out.dim() == 5:  # the K6 scan's vals (T, 3, L, W, G)
-        out = out.movedim(0, -1).reshape(3, L, -1)
-    return ffl.canon(field, out.permute(0, 2, 1))  # rows (3, L, N) -> (3, N, L)
+        out = out.movedim(0, -1)
+    return ffl.canon(field, out.reshape(3, L, -1).permute(0, 2, 1))  # rows (3, L, ...) -> (3, N, L)
 
 
 def input_key(args) -> tuple:
@@ -251,16 +298,36 @@ def seeded_scan(curve, W: int, G: int, T: int, seed: int, dev):
     return (curve, carry.to(dev), q[:2].reshape(2, L, W, N).to(dev), keep.to(dev), q_inf.to(dev))
 
 
+def seeded_fixup(curve, W: int, G: int, T: int, seed: int, dev):
+    """K3 fix-up arguments on the card: 17 buckets and W G inflows with
+    identity points, and sorted digits from a few values, so that segments
+    cross one lane or several."""
+    import torch
+
+    NB = 17
+    rng = np.random.default_rng(seed)
+    dig = torch.as_tensor(np.sort(rng.choice([0, 1, 4, 9, 10, 16], size=(W, G * T)), axis=-1))
+    buckets = seeded_point_rows(curve, W * NB, seed, 6, True).reshape(3, L, W, NB)
+    inflow = seeded_point_rows(curve, W * G, seed + 1, 5, True).reshape(3, L, W, G)
+    return (curve, buckets.to(dev), inflow.to(dev), dig.to(dev))
+
+
 def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
     """Inputs beyond the recorded main path. K7, which the verify never
     calls, gets the first step of every recorded K6 scan with q's Z row
     made explicit (1 - q_inf) as its recorded inputs (timed, zero calls),
     and a seeded set per curve with identity lanes in p and q and both
-    masks mixed. K2 also gets B = 33, T = 5 in each field (a block with one
-    live transcript); K4 every recorded input at k = 1 and a seeded
-    1,500-lane set per curve at k = 1 and 13; the K6 scan the MSM's input
-    and seeded ragged scans per curve (W G = 111 and 90 lanes, T = 3 and
-    1). Returns {kernel: [argument tuples]} of the checked-only sets."""
+    masks mixed; the one-step K5, which the verify no longer calls either,
+    the first up-sweep level of every recorded lane repair (p the left
+    lanes, q the right ones, keep_q the right flags) and the same seeded
+    sets. K2 also gets B = 33, T = 5 in each field (a block with one live
+    transcript); K4 every recorded input at k = 1 and a seeded 1,500-lane
+    set per curve at k = 1 and 13; the K6 scan, K3's weighting and fix-up
+    and K5's repair the MSM's inputs, and per curve seeded ragged scans
+    (W G = 111 and 90 lanes, T = 3 and 1), bucket arrays (W = 3, D = 64 and
+    4096), fix-ups (W G = 111, T = 3) and repairs (W = 3, G = 16; W = 2,
+    G = 4096, lanes in device memory). Returns {kernel: [argument tuples]}
+    of the checked-only sets."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -281,7 +348,16 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
         q2, k, i = pk.scan_step(xy, keep, q_inf, carry.shape[-1], 0)
         k7.append((c, carry.reshape(3, L, -1), pk.with_z(q2, i), k, i))
     rec.inputs["padd_mixed_select"] = {input_key(a): a for a in k7}
-    seeded, k4, k6 = [], [], list(msm_rec.inputs["padd_mixed_select2"].values())
+    k5 = []
+    for c, carry, flags in rec.inputs["padd_select_scan"].values():
+        W, G = flags.shape
+        halves = carry.reshape(3, L, W, G // 2, 2)
+        keep = flags.reshape(W, G // 2, 2)[..., 1].reshape(-1).to(torch.int32)
+        k5.append((c, halves[..., 0].reshape(3, L, -1).contiguous(), halves[..., 1].reshape(3, L, -1).contiguous(), keep))
+    rec.inputs["padd_select"] = {input_key(a): a for a in k5}
+    msm = {name: list(msm_rec.inputs[name].values()) for name in msm_rec.inputs}
+    seeded, seeded_k5, k4, k6 = [], [], [], msm["padd_mixed_select2"]
+    k3w, k3f, k5s = msm["padd_weight_sum"], msm["padd_fixup"], msm["padd_select_scan"]
     k4 += [(c, p, 1) for c, p, _ in rec.inputs["pdouble"].values()]
     for i, curve in enumerate((PALLAS, VESTA)):
         n = 4096
@@ -289,25 +365,59 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
         q = seeded_point_rows(curve, n, seed + 2 * i + 1, 5, False).to(dev)
         keep = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)
         seeded.append((curve, p, q, keep, (q[2, 0] == 0).to(torch.int32)))
+        seeded_k5.append((curve, p, q, keep))
         k4 += [(curve, p[..., :1500].contiguous(), k) for k in (1, 13)]
         k6 += [seeded_scan(curve, 3, 37, 3, seed + 10 + i, dev), seeded_scan(curve, 2, 45, 1, seed + 20 + i, dev)]
-    return {"transcript_blocks": k2, "padd_mixed_select": seeded, "pdouble": k4, "padd_mixed_select2": k6}
+        k3w += [(curve, seeded_point_rows(curve, 3 * (D + 1), seed + 30 + i, 6, True).reshape(3, L, 3, D + 1).to(dev))
+                for D in (64, 4096)]
+        k3f.append(seeded_fixup(curve, 3, 37, 3, seed + 40 + i, dev))
+        flag_rng = np.random.default_rng(seed + 50 + i)
+        for W, G in ((3, 16), (2, 4096)):
+            x = p[..., : W * G].reshape(3, L, W, G) if W * G <= n else p.repeat(1, 1, 2).reshape(3, L, W, G)
+            k5s.append((curve, x.contiguous(), torch.as_tensor(flag_rng.random((W, G)) < 0.2, device=dev)))
+    return {"transcript_blocks": k2, "padd_mixed_select": seeded, "padd_select": seeded_k5, "pdouble": k4,
+            "padd_mixed_select2": k6, "padd_weight_sum": k3w, "padd_fixup": k3f, "padd_select_scan": k5s}
+
+
+CHAINS = ("pdouble", "padd_mixed_select2", "padd_weight_sum", "padd_select_scan")
 
 
 def dependent_products(name: str, args) -> int:
-    """Products on the dependent chain of one launch (K4, the K6 scan): 3
-    a doubling or a scan step (points.cuh), plus the conversion in and out."""
+    """Products on the dependent chain of one launch (points.cuh: 3 a
+    doubling, a complete add or a mixed-add scan step), plus the conversion
+    in and out. K4: k doublings; the K6 scan: T = N / G steps; K3's
+    weighting: a chunk's run chain of S adds, the last tot add, log2 S
+    doublings, then an add and a doubling (ma) a tree level below the root
+    and one add at the root; K5's repair: one add a level, 2 log2 G levels."""
     if name == "pdouble":
         return 3 * args[2] + 2
+    if name == "padd_weight_sum":
+        from mina_bridge_tpu_torch.curves.point_kernels import weight_chunks
+
+        D = args[1].shape[-1] - 1
+        K, _ = weight_chunks(D)
+        S = D // K
+        tree = 6 * (K.bit_length() - 2) + 3 if K > 1 else 0
+        return 3 * S + 3 + 3 * (S.bit_length() - 1) + tree + 2
+    if name == "padd_select_scan":
+        return 6 * (args[1].shape[-1].bit_length() - 1) + 2
     return 3 * (args[3].shape[-1] // args[1].shape[-1]) + 2  # T = N / G steps
+
+
+def fresh(args) -> tuple:
+    """A call's arguments with every tensor copied (the fix-up works in place)."""
+    import torch
+
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
 def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> list[dict]:
     """Each kernel vs its plain version on every recorded input and the
     extra inputs; each kernel timed at every recorded shape, the plain
-    version at the one with the most lanes. The rows of K2, K4 and the K6
-    scan also get their critical-path floors from the probe; the K6 row
-    its time at the MSM's input."""
+    version at the one with the most lanes. The rows of K2 and the chains
+    (K4, the K6 scan, K3's weighting, K5's repair) also get their
+    critical-path floors from the probe; the K6 row its time at the MSM's
+    input."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -319,8 +429,11 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
         "pow_const": (chain_kernel.pow_const_rows, chain_kernel.pow_const_plain),
         "transcript_blocks": (tk.transcript_blocks, tk.transcript_blocks_plain),
         "padd": (pk.padd, pk.padd_plain),
+        "padd_weight_sum": (pk.padd_weight_sum, pk.padd_weight_sum_plain),
+        "padd_fixup": (pk.padd_fixup, pk.padd_fixup_plain),
         "pdouble": (pk.pdouble, pk.pdouble_plain),
         "padd_select": (pk.padd_select, pk.padd_select_plain),
+        "padd_select_scan": (pk.padd_select_scan, pk.padd_select_scan_plain),
         "padd_mixed_select2": (pk.padd_mixed_select2_scan, pk.padd_mixed_select2_scan_plain),
         "padd_mixed_select": (pk.padd_mixed_select, pk.padd_mixed_select_plain),
     }
@@ -332,8 +445,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
         sets = [*timed.values(), *extra.get(name, [])]
         err = 0
         for args in sets:
-            a = canon_out(name, args[0], kern(*args))
-            b = canon_out(name, args[0], plain(*args))
+            a = canon_out(name, args[0], kern(*fresh(args)))
+            b = canon_out(name, args[0], plain(*fresh(args)))
             err = max(err, int((a - b).abs().max()))
         torch.cuda.synchronize()
         if err != 0:
@@ -374,7 +487,7 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
             lat = probe["mul32_" + ("fp" if ps.field.p == FP.p else "fq")]
             row["dependent_products_per_block"] = per_block
             row["critical_path_floor_ms"] = adds.shape[0] * per_block * lat * 1e-6
-        if name in ("pdouble", "padd_mixed_select2"):
+        if name in CHAINS:
             lat = probe["mul32_" + ("fp" if args[0].base.p == FP.p else "fq")]
             row["dependent_products"] = dependent_products(name, args)
             row["critical_path_floor_ms"] = row["dependent_products"] * lat * 1e-6
@@ -491,7 +604,7 @@ def main() -> int:
     points = ipa.aff_to_rep(torch.as_tensor(srs["g"], device=dev))
     scal = [int.from_bytes(rng.bytes(32), "little") % PALLAS.scalar.p for _ in range(n)]
     scalars = torch.as_tensor(ffl.ints_to_limbs(scal), device=dev)
-    with Recorder(only={"padd_mixed_select2"}) as msm_rec:
+    with Recorder(only={"padd_mixed_select2", "padd_weight_sum", "padd_fixup", "padd_select_scan"}) as msm_rec:
         got = cv.to_affine_ints(PALLAS, pmsm.msm(PALLAS, scalars, points))
     want = cv.to_affine_ints(PALLAS, plain_msm.msm(PALLAS, scalars, points))
     if got != want or got[0] is None:

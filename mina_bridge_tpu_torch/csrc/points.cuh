@@ -4,9 +4,15 @@
 //
 // Counterpart of the jnp bodies in mina_bridge_tpu/curves/pallas_kernels.py
 // (padd_rows, pdouble_rows, padd_mixed_rows). P picks how the field
-// products are taken (fld::Product): one out-of-line mul32 for K4 and K6,
-// mul inlined for K3, K5 and K7. All compute the same values, so the
-// formulas give the same points either way.
+// products are taken (fld::Product): one out-of-line mul32 for K3-K6, mul
+// inlined for K7. All compute the same values, so the formulas give the
+// same points either way.
+//
+// Below the formulas are the per-thread steps of the MSM's three
+// one-launch phases (the bucket weighting and the fix-up of K3, the lane
+// scan of K5). points.cu runs them in its kernels between block barriers;
+// field_host.cpp runs the same steps in loops, so the CPU tests check
+// their index arithmetic.
 #pragma once
 #include "field.cuh"
 
@@ -148,6 +154,98 @@ PHD Pt padd_mixed_f(const Pt& p, const Fe& x2, const Fe& y2) {
   z3 = fld::mulx<F, P>(z3, t4);
   z3 = add<F>(z3, t0);
   return {x3, y3, z3};
+}
+
+template <int F>
+PHD Pt identity() {
+  return {fld::zero<F>(), fld::one<F>(), fld::zero<F>()};
+}
+
+// ---------------------------------------------------------------------------
+// K3, the bucket weighting: total_w = sum_{d=1}^{D} d B_{w,d}.
+//
+// A window's D buckets are cut into K chunks of S = D / K; chunk j holds
+// buckets j S + 1 .. (j + 1) S. For a group of chunks starting at bucket
+// o + 1, keep tw = sum (d - o) B_d over its buckets and ma = M A, where A
+// is the group's plain sum and M its width in buckets. Two neighbouring
+// groups of width M combine as tw = (tw_l + tw_r) + ma_r and
+// ma = 2 (ma_l + ma_r), so a binary tree over the K chunks ends in
+// sum d B_d at the root (o = 0).
+// ---------------------------------------------------------------------------
+
+// One chunk: walk buckets lane0 + S - 1 down to lane0 of a (3, 22, nlanes)
+// batch with run += B; tot += run (so tot = sum (d - o) B_d), then double
+// run log2 S times (ma = S A).
+template <int F, int P>
+PHD void weight_walk(const int64_t* b, int64_t lane0, int64_t nlanes, int S, Pt& tot, Pt& run) {
+  run = identity<F>();
+  tot = identity<F>();
+  for (int s = S - 1; s >= 0; s--) {
+    run = padd_f<F, P>(run, load_pt<F, P>(b, lane0 + s, nlanes));
+    tot = padd_f<F, P>(tot, run);
+  }
+  for (int k = S; k > 1; k >>= 1) run = pdouble_f<F, P>(run);
+}
+
+// Thread j's part of one tree level over n entries (groups of s leaves at
+// tw[i s], ma[i s]) for a block of 2 half threads: thread i < half combines
+// merge i's tw, thread half + i its ma, which only a level below the root
+// needs (with_ma). The two roles sit in different warps, so no warp runs
+// both.
+template <int F, int P>
+PHD void weight_merge(Pt* tw, Pt* ma, int j, int half, int s, int n, bool with_ma) {
+  const bool second = j >= half;
+  const int l = (second ? j - half : j) * 2 * s, r = l + s;
+  if (r >= n) return;
+  if (!second)
+    tw[l] = padd_f<F, P>(padd_f<F, P>(tw[l], tw[r]), ma[r]);
+  else if (with_ma)
+    ma[l] = pdouble_f<F, P>(padd_f<F, P>(ma[l], ma[r]));
+}
+
+// ---------------------------------------------------------------------------
+// K5, the lane repair: an in-place Blelloch scan of a window's G lane
+// carries a[] with segment flags f[] (G a power of two). The up-sweep
+// combine is f_r ? a_r : a_l + a_r, the down-sweep's f_l ? a_l : e + a_l
+// (e the parent's exclusive value), as in pmsm's loop of one-step K5
+// launches; the left entries that loop stashes are the ones an in-place
+// scan leaves untouched.
+// ---------------------------------------------------------------------------
+
+// Merge m of the up-sweep level whose groups are s lanes wide.
+template <int F, int P>
+PHD void lane_up(Pt* a, int32_t* f, int m, int s) {
+  const int l = m * 2 * s + s - 1, r = l + s;
+  if (!f[r]) a[r] = padd_f<F, P>(a[l], a[r]);
+  f[r] |= f[l];
+}
+
+// Merge m of the down-sweep level whose groups are s lanes wide.
+template <int F, int P>
+PHD void lane_down(Pt* a, const int32_t* f, int m, int s) {
+  const int l = m * 2 * s + s - 1, r = l + s;
+  const Pt left = a[l], e = a[r];
+  a[l] = e;
+  a[r] = f[l] ? left : padd_f<F, P>(e, left);
+}
+
+// ---------------------------------------------------------------------------
+// K3, the fix-up: lane (w, g) of the chunked scan owns positions
+// [g T, (g + 1) T) of window w's sorted digits dig (W, G T). The bucket
+// whose segment holds position g T needs the lane's inflow iff the segment
+// began in an earlier lane and ends in this one; then
+// bucket = bucket + inflow, in place in buckets (3, 22, W, NB).
+// ---------------------------------------------------------------------------
+template <int F, int P>
+PHD void fixup_lane(int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t w, int64_t g,
+                    int64_t W, int64_t G, int64_t T, int64_t NB) {
+  if (g == 0) return;
+  const int64_t* dw = dig + w * G * T;
+  const int64_t p0 = g * T, d = dw[p0];
+  if (dw[p0 - 1] != d || (g + 1 < G && dw[p0 + T] == d) || d < 0 || d >= NB) return;
+  const int64_t idx = w * NB + d, nb = W * NB;
+  const Pt sum = padd_f<F, P>(load_pt<F, P>(buckets, idx, nb), load_pt<F, P>(inflow, w * G + g, W * G));
+  store_pt<F, P>(sum, buckets, idx, nb);
 }
 
 }  // namespace pts

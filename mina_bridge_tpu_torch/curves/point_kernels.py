@@ -7,13 +7,17 @@ lane, bounds-checked (see the note there on what bounds them).
 
 A point batch is (3, 22, N) int64: coordinates, limbs, lanes. K6's q is
 (2, 22, N) (x, y) with Z = 1 - q_inf; K7's q is (3, 22, N) with a Z row of
-exactly 0 or 1. Two kernels take a whole chain in one launch: K4
-(`pdouble`) runs k doublings, and K6 (`padd_mixed_select2_scan`) runs all
-T steps of the MSM's chunked segmented scan; the one-step
-`padd_mixed_select2` is its T = 1 case. Only K1-K6 are on the verify
-path: K7, like its JAX counterpart, has no caller in the system. Each
-wrapper runs its `*_plain` version (curves/curve.py formulas in plain
-torch ops) on a CPU tensor and launches its kernel on a CUDA tensor, or
+exactly 0 or 1. Several kernels take a whole chain of the MSM in one
+launch: K4 (`pdouble`) runs k doublings; K6 (`padd_mixed_select2_scan`)
+runs all T steps of the chunked segmented scan, and the one-step
+`padd_mixed_select2` is its T = 1 case; K3 runs the bucket weighting
+(`padd_weight_sum`) and the fix-up of the buckets that cross a lane
+(`padd_fixup`) beside the one-step `padd`; K5 runs the whole Blelloch lane
+repair (`padd_select_scan`) beside the one-step `padd_select`. The
+one-step `padd_select` and K7 have no caller on the verify's path (K7 has
+none in the JAX package either). Each wrapper runs its `*_plain` version
+(curves/curve.py formulas in plain torch ops, in the kernel's order of
+additions) on a CPU tensor and launches its kernel on a CUDA tensor, or
 raises. The kernels write canonical limbs; the plain versions write REP
 limbs. Both mean the same field elements.
 """
@@ -37,8 +41,22 @@ __all__ = [
     "padd_mixed_select2",
     "padd_mixed_select2_scan",
     "padd_mixed_select",
+    "padd_weight_sum",
+    "padd_fixup",
+    "padd_select_scan",
     "with_z",
 ]
+
+# The bucket weighting: a window's D buckets in WEIGHT_CHUNKS chunks (fewer
+# if D is smaller), WEIGHT_THREADS chunks a block, one chunk a thread
+# (the fastest shape of scripts/torch_weight_sweep.py on an H100; PERF.md).
+WEIGHT_CHUNKS = 1024
+WEIGHT_THREADS = 128
+# The lane repair keeps a window's lanes in shared memory up to this G, in
+# device memory above it; its flags (4 B a lane) always in shared memory.
+LANE_SCAN_SHARED_G = 2048
+LANE_SCAN_MAX_G = 32768
+PT_WORDS = 12  # a point as Montgomery words: 3 coordinates of 4 x 64 bits
 
 
 def to_rows(pts: torch.Tensor) -> torch.Tensor:
@@ -116,6 +134,116 @@ def padd_mixed_select2_scan_plain(c: CurveSpec, carry, xy, keep_q, q_inf) -> tor
         acc = padd_mixed_select2_plain(c, acc, *scan_step(xy, keep_q, q_inf, G, t))
         vals.append(acc.reshape(3, ffl.REP_LIMBS, W, G))
     return torch.stack(vals)
+
+
+def identity_rows(lanes: tuple, device) -> torch.Tensor:
+    """The identity (0 : 1 : 0) in rows layout, (3, L) + lanes."""
+    out = torch.zeros((3, ffl.REP_LIMBS) + tuple(lanes), dtype=ffl.DTYPE, device=device)
+    out[1, 0] = 1
+    return out
+
+
+def _add(c: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """padd_plain on (3, L, ...) batches of one shape."""
+    return padd_plain(c, p.reshape(3, ffl.REP_LIMBS, -1), q.reshape(3, ffl.REP_LIMBS, -1)).reshape(p.shape)
+
+
+def _double(c: CurveSpec, p: torch.Tensor, k: int = 1) -> torch.Tensor:
+    return pdouble_plain(c, p.reshape(3, ffl.REP_LIMBS, -1), k).reshape(p.shape)
+
+
+def weight_chunks(D: int) -> tuple[int, int]:
+    """(K, C): the weighting's chunks a window and chunks a block."""
+    if D < 1 or D & (D - 1):
+        raise ValueError(f"padd_weight_sum: the bucket count D must be a power of two, got {D}")
+    K = min(WEIGHT_CHUNKS, D)
+    return K, min(WEIGHT_THREADS, K)
+
+
+def padd_weight_sum_plain(c: CurveSpec, buckets: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
+    """sum_{d=1}^{D} d B_{w,d} for every window w of buckets (3, L, W, D + 1)
+    (bucket 0 unread) -> (3, L, W), in the kernel's order (csrc/points.cuh):
+    each of K chunks (K = chunks or min(WEIGHT_CHUNKS, D)) walks its S = D / K
+    buckets top down (run += B; tot += run) and doubles run log2 S times,
+    then a binary tree over neighbouring chunks combines
+    tw = (tw_l + tw_r) + ma_r and, below the root, ma = 2 (ma_l + ma_r)."""
+    W, NB = buckets.shape[2:]
+    D = NB - 1
+    K = chunks or weight_chunks(D)[0]
+    S = D // K
+    b = buckets[..., 1:].reshape(3, ffl.REP_LIMBS, W * K, S)  # lane w K + j: buckets j S + 1 ..
+    run, tot = identity_rows((W * K,), buckets.device), identity_rows((W * K,), buckets.device)
+    for s in reversed(range(S)):
+        run = _add(c, run, b[..., s])
+        tot = _add(c, tot, run)
+    if S > 1:
+        run = _double(c, run, S.bit_length() - 1)
+    tw, ma = tot.reshape(3, ffl.REP_LIMBS, W, K), run.reshape(3, ffl.REP_LIMBS, W, K)
+    while tw.shape[-1] > 1:
+        n = tw.shape[-1]
+        new_tw = _add(c, _add(c, tw[..., 0::2], tw[..., 1::2]), ma[..., 1::2])
+        if n > 2:
+            ma = _double(c, _add(c, ma[..., 0::2], ma[..., 1::2]))
+        tw = new_tw
+    return tw[..., 0]
+
+
+def fixup_need(dig: torch.Tensor, G: int) -> torch.Tensor:
+    """(W, G) bool: lane (w, g) of the chunked scan owns positions
+    [g T, (g + 1) T) of window w's sorted digits dig (W, G T); it fixes the
+    bucket holding position g T iff that bucket's segment began in an
+    earlier lane and ends in this one."""
+    T = dig.shape[-1] // G
+    first = dig[:, ::T]  # the digit at g T
+    need = torch.zeros(first.shape, dtype=torch.bool, device=dig.device)
+    need[:, 1:] = dig[:, T - 1 :: T][:, :-1] == first[:, 1:]  # the digit at g T - 1
+    need[:, :-1] &= first[:, 1:] != first[:, :-1]  # the digit at (g + 1) T
+    return need
+
+
+def padd_fixup_plain(c: CurveSpec, buckets: torch.Tensor, inflow: torch.Tensor, dig: torch.Tensor) -> torch.Tensor:
+    """In place: bucket + inflow[w, g] for the bucket each lane (w, g) fixes
+    (fixup_need). buckets (3, L, W, NB); inflow (3, L, W, G); dig (W, G T).
+    Returns buckets."""
+    G = inflow.shape[-1]
+    w_idx, g_idx = fixup_need(dig, G).nonzero(as_tuple=True)
+    d_idx = dig[:, :: dig.shape[-1] // G][w_idx, g_idx]
+    buckets[:, :, w_idx, d_idx] = padd_plain(c, buckets[:, :, w_idx, d_idx], inflow[:, :, w_idx, g_idx])
+    return buckets
+
+
+def _select_add(c: CurveSpec, p, q, keep_q):
+    """padd_select_plain on (3, L, ...) batches, keep_q over the lanes."""
+    L = ffl.REP_LIMBS
+    out = padd_select_plain(c, p.reshape(3, L, -1), q.reshape(3, L, -1), keep_q.reshape(-1))
+    return out.reshape(p.shape)
+
+
+def padd_select_scan_plain(c: CurveSpec, carry: torch.Tensor, has_start: torch.Tensor) -> torch.Tensor:
+    """Exclusive segmented point-scan over the lane axis, reset at lanes
+    with a segment start: a Blelloch up/down sweep of one-step
+    padd_select_plain combines. carry: (3, L, W, G); has_start: (W, G);
+    G a power of two."""
+    G = carry.shape[-1]
+    if G < 1 or G & (G - 1):
+        raise ValueError(f"padd_select_scan: G must be a power of two, got {G}")
+    x = carry
+    f = has_start.to(torch.int32)
+    stash = []
+    for _ in range(G.bit_length() - 1):
+        xs = x.reshape(x.shape[:-1] + (-1, 2))
+        fs_ = f.reshape(f.shape[:-1] + (-1, 2))
+        left_x, right_x = xs[..., 0], xs[..., 1]
+        left_f, right_f = fs_[..., 0], fs_[..., 1]
+        stash.append((left_x, left_f))
+        x = _select_add(c, left_x, right_x, right_f)
+        f = left_f | right_f
+    excl = identity_rows(carry.shape[2:-1] + (1,), carry.device)
+    for left_x, left_f in reversed(stash):
+        right_excl = _select_add(c, excl, left_x, left_f)
+        m = excl.shape[-1]
+        excl = torch.stack([excl, right_excl], dim=-1).reshape(excl.shape[:-1] + (2 * m,))
+    return excl
 
 
 # ---------------------------------------------------------------------------
@@ -212,3 +340,79 @@ def padd_mixed_select(c: CurveSpec, p, q, keep_q, q_inf) -> torch.Tensor:
     return _launch(
         "padd_mixed_select", "mbt_padd_mixed_select", c, (p, q), (keep_q, q_inf), p.shape[-1]
     )
+
+
+def padd_weight_sum(c: CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
+    """K3, the MSM's bucket weighting in one launch: sum_{d=1}^{D} d B_{w,d}
+    for each window of buckets (3, L, W, D + 1), D a power of two ->
+    (3, L, W). See padd_weight_sum_plain."""
+    if buckets.device.type == "cpu":
+        return padd_weight_sum_plain(c, buckets)
+    name = "padd_weight_sum"
+    buckets = buckets.to(ffl.DTYPE).contiguous()
+    kernels.require_cuda(name, buckets)
+    if buckets.dim() != 4 or buckets.shape[:2] != (3, ffl.REP_LIMBS):
+        raise ValueError(f"{name}: expected (3, {ffl.REP_LIMBS}, W, D + 1) buckets, got {tuple(buckets.shape)}")
+    W, NB = buckets.shape[2:]
+    K, C = weight_chunks(NB - 1)
+    out = torch.empty((3, ffl.REP_LIMBS, W), dtype=ffl.DTYPE, device=buckets.device)
+    partials = torch.empty((W, 2 * (K // C), PT_WORDS), dtype=torch.int64, device=buckets.device)
+    counters = torch.zeros(W, dtype=torch.int32, device=buckets.device)
+    rc = kernels.lib("points").mbt_padd_weight_sum(
+        field_id(c.base), buckets.data_ptr(), out.data_ptr(), partials.data_ptr(), counters.data_ptr(),
+        W, NB - 1, K, C, kernels.stream(),
+    )
+    kernels.check(rc, name)
+    return out
+
+
+def padd_fixup(c: CurveSpec, buckets: torch.Tensor, inflow: torch.Tensor, dig: torch.Tensor) -> torch.Tensor:
+    """K3, the fix-up of the buckets whose segment crosses a lane, in one
+    launch over the W G lanes; in place in buckets (3, L, W, NB), which must
+    be contiguous int64 on the card. inflow: (3, L, W, G); dig: (W, G T)
+    sorted digits in [0, NB). Returns buckets. See padd_fixup_plain."""
+    if buckets.device.type == "cpu":
+        return padd_fixup_plain(c, buckets, inflow, dig)
+    name = "padd_fixup"
+    inflow, dig = inflow.to(ffl.DTYPE).contiguous(), dig.to(torch.int64).contiguous()
+    kernels.require_cuda(name, buckets, inflow, dig)
+    if buckets.dtype != ffl.DTYPE or buckets.dim() != 4 or buckets.shape[:2] != (3, ffl.REP_LIMBS):
+        raise ValueError(f"{name}: expected (3, {ffl.REP_LIMBS}, W, NB) int64 buckets, got {tuple(buckets.shape)}")
+    W, NB = buckets.shape[2:]
+    G = inflow.shape[-1]
+    N = dig.shape[-1]
+    if inflow.shape != (3, ffl.REP_LIMBS, W, G) or dig.shape != (W, N) or G < 1 or N % G or N == 0:
+        raise ValueError(f"{name}: inflow {tuple(inflow.shape)} and digits {tuple(dig.shape)} do not fit {W} windows")
+    rc = kernels.lib("points").mbt_padd_fixup(
+        field_id(c.base), buckets.data_ptr(), inflow.data_ptr(), dig.data_ptr(), W, G, N // G, NB, kernels.stream()
+    )
+    kernels.check(rc, name)
+    return buckets
+
+
+def padd_select_scan(c: CurveSpec, carry: torch.Tensor, has_start: torch.Tensor) -> torch.Tensor:
+    """K5, the MSM's Blelloch lane repair in one launch, one block per
+    window: carry (3, L, W, G), has_start (W, G), G a power of two up to
+    LANE_SCAN_MAX_G -> (3, L, W, G). See padd_select_scan_plain."""
+    if carry.device.type == "cpu":
+        return padd_select_scan_plain(c, carry, has_start)
+    name = "padd_select_scan"
+    carry, flags = carry.to(ffl.DTYPE).contiguous(), has_start.to(torch.int32).contiguous()
+    kernels.require_cuda(name, carry, flags)
+    if carry.dim() != 4 or carry.shape[:2] != (3, ffl.REP_LIMBS):
+        raise ValueError(f"{name}: expected a (3, {ffl.REP_LIMBS}, W, G) carry, got {tuple(carry.shape)}")
+    W, G = carry.shape[2:]
+    if flags.shape != (W, G):
+        raise ValueError(f"{name}: expected ({W}, {G}) flags, got {tuple(flags.shape)}")
+    if G < 1 or G & (G - 1) or G > LANE_SCAN_MAX_G:
+        raise ValueError(f"{name}: G must be a power of two up to {LANE_SCAN_MAX_G}, got {G}")
+    out = torch.empty_like(carry)
+    scratch = None
+    if G > LANE_SCAN_SHARED_G:
+        scratch = torch.empty((W, G, PT_WORDS), dtype=torch.int64, device=carry.device)
+    rc = kernels.lib("points").mbt_padd_select_scan(
+        field_id(c.base), carry.data_ptr(), flags.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), W, G, kernels.stream(),
+    )
+    kernels.check(rc, name)
+    return out

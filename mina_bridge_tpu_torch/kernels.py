@@ -45,13 +45,16 @@ SOURCES = {
         "mbt_padd_select": [_I, _V, _V, _V, _V, _L, _V],
         "mbt_padd_mixed_select2_scan": [_I, _V, _V, _V, _V, _V, _L, _L, _L, _V],
         "mbt_padd_mixed_select": [_I, _V, _V, _V, _V, _V, _L, _V],
+        "mbt_padd_weight_sum": [_I, _V, _V, _V, _V, _L, _L, _L, _L, _V],
+        "mbt_padd_fixup": [_I, _V, _V, _V, _L, _L, _L, _L, _V],
+        "mbt_padd_select_scan": [_I, _V, _V, _V, _V, _L, _L, _V],
     },
     "probe": {"mbt_product_chain": [_I, _I, _V, _V, _I, _V]},
 }
 
 KERNELS = (
-    "pow_const", "transcript_blocks", "padd", "pdouble", "padd_select", "padd_mixed_select2",
-    "padd_mixed_select",
+    "pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select",
+    "padd_select_scan", "padd_mixed_select2", "padd_mixed_select",
 )
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 

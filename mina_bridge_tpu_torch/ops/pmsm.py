@@ -8,16 +8,19 @@ Counterpart of mina_bridge_tpu/ops/pmsm.py, with the same algorithm:
 * bucket sums for all 20 windows at once by a chunked segmented scan
   (the sorted stream split into G contiguous chunks per window, T = N / G
   steps of the mixed-add combine, all in one K6 launch), a Blelloch
-  segmented scan over the lanes (K5) to repair segments that cross
-  lanes, a gather of each bucket's segment end and one fix-up add (K3);
-* the suffix-sum weighting sum_d d B_d as a chunked prefix scan (K3), a
-  log-halving reduce (K3) and a Horner walk over the windows with one K4
-  launch of 13 doublings and one add (K3) per window.
+  segmented scan over the lanes (one K5 launch) to repair segments that
+  cross lanes, a gather of each bucket's segment end and one fix-up add
+  per lane where a segment crosses into it (one K3 launch);
+* the suffix-sum weighting sum_d d B_d of every window in one K3 launch,
+  and a Horner walk over the windows with one K4 launch of 13 doublings
+  and one add (K3) per window.
 
-This is the path the port takes on the card, where every point add wave
-is one kernel launch; on the CPU the wrappers run their plain versions.
-G_DEFAULT is the chunk count per window on the card (PERF.md has the
-sweep that chose it); the JAX package tuned its own G for the TPU.
+This is the path the port takes on the card; on the CPU the wrappers run
+their plain versions, in the kernels' order of additions. The JAX package
+runs the weighting and the repair as waves of one-step kernels; the
+results are the same points. G_DEFAULT is the chunk count per window on
+the card (PERF.md has the sweep that chose it); the JAX package tuned its
+own G for the TPU.
 """
 
 from __future__ import annotations
@@ -42,12 +45,6 @@ G_DEFAULT = 1024
 __all__ = ["msm", "msm_rows", "msm_buckets", "G_DEFAULT"]
 
 
-def _ident(shape, device) -> torch.Tensor:
-    out = torch.zeros((3, L) + tuple(shape), dtype=ffl.DTYPE, device=device)
-    out[1, 0] = 1
-    return out
-
-
 def _flat(x: torch.Tensor, rows: int) -> torch.Tensor:
     return x.reshape(rows, L, -1)
 
@@ -57,45 +54,15 @@ def _padd(c, p, q):
     return pk.padd(c, _flat(p, 3), _flat(q, 3)).reshape(p.shape)
 
 
-def _padd_select(c, p, q, keep_q):
-    m = keep_q.expand(p.shape[2:]).reshape(-1)
-    return pk.padd_select(c, _flat(p, 3), _flat(q, 3), m).reshape(p.shape)
-
-
 def _pdouble(c, p, k):
     return pk.pdouble(c, _flat(p, 3), k).reshape(p.shape)
 
 
-def _to_chunks(x: torch.Tensor, G: int) -> torch.Tensor:
-    """(..., N) -> (T, ..., G) with element (t, g) = x[..., g*T + t]."""
-    N = x.shape[-1]
-    T = N // G
-    return x.reshape(x.shape[:-1] + (G, T)).movedim(-1, 0)
-
-
 def _lane_segmented_exclusive(c, carry_out, has_start):
     """Exclusive segmented point-scan over the lane axis, reset at lanes
-    with a segment start (Blelloch up/down sweep; combine K5).
+    with a segment start (the Blelloch repair, one K5 launch).
     carry_out: (3, L, W, G); has_start: (W, G); G a power of two."""
-    G = carry_out.shape[-1]
-    assert G & (G - 1) == 0
-    x = carry_out
-    f = has_start.to(torch.int32)
-    stash = []
-    for _ in range(G.bit_length() - 1):
-        xs = x.reshape(x.shape[:-1] + (-1, 2))
-        fs_ = f.reshape(f.shape[:-1] + (-1, 2))
-        left_x, right_x = xs[..., 0], xs[..., 1]
-        left_f, right_f = fs_[..., 0], fs_[..., 1]
-        stash.append((left_x, left_f))
-        x = _padd_select(c, left_x, right_x, right_f)
-        f = left_f | right_f
-    excl = _ident(carry_out.shape[2:-1] + (1,), carry_out.device)
-    for left_x, left_f in reversed(stash):
-        right_excl = _padd_select(c, excl, left_x, left_f)
-        m = excl.shape[-1]
-        excl = torch.stack([excl, right_excl], dim=-1).reshape(excl.shape[:-1] + (2 * m,))
-    return excl
+    return pk.padd_select_scan(c, carry_out, has_start)
 
 
 def bucket_sums_all_windows(c, pts_sorted, inf_sorted, dig_sorted, G: int):
@@ -114,7 +81,8 @@ def bucket_sums_all_windows(c, pts_sorted, inf_sorted, dig_sorted, G: int):
 
     # lane (w, g) scans positions [g T, (g + 1) T) of window w; position p
     # ends up at vals[p % T, :, :, w, p // T]
-    vals = pk.padd_mixed_select2_scan(c, _ident((W, G), dev), pts_sorted, seg_start, inf_sorted.to(torch.int32))
+    carry = pk.identity_rows((W, G), dev)
+    vals = pk.padd_mixed_select2_scan(c, carry, pts_sorted, seg_start, inf_sorted.to(torch.int32))
 
     dvals = torch.arange(NBUCKETS, device=dev).expand(W, NBUCKETS).contiguous()
     right = torch.searchsorted(dig_sorted.contiguous(), dvals, right=True)
@@ -126,57 +94,13 @@ def bucket_sums_all_windows(c, pts_sorted, inf_sorted, dig_sorted, G: int):
     w_idx = torch.arange(W, device=dev).unsqueeze(1).expand(W, NBUCKETS)
 
     gathered = vals[t_idx, :, :, w_idx, g_idx].permute(2, 3, 0, 1)  # (3, L, W, NB)
+    buckets = torch.where(exists, gathered, pk.identity_rows((W, NBUCKETS), dev)).contiguous()
 
     has_start = seg_start.reshape(W, G, T).amax(dim=-1)  # (W, G)
     inflow = _lane_segmented_exclusive(c, vals[-1], has_start)
-    inflow_b = inflow[:, :, w_idx, g_idx]  # (3, L, W, NB)
-    need_fix = exists & (left < g_idx * T)
-    fixed = _padd(c, gathered, inflow_b)
-    buckets = torch.where(need_fix, fixed, gathered)
-    return torch.where(exists, buckets, _ident((W, NBUCKETS), dev))
-
-
-def _chunked_prefix(c, x, reverse: bool = False, G: int = 512):
-    """Inclusive prefix point-sum along the last axis of (3, L, ..., N)."""
-    N = x.shape[-1]
-    if reverse:
-        x = torch.flip(x, dims=(-1,))
-    G = min(G, N)
-    npad = -(-N // G) * G
-    if npad != N:
-        x = torch.cat([x, _ident(x.shape[2:-1] + (npad - N,), x.device)], dim=-1)
-    xc = _to_chunks(x, G)  # (T, 3, L, ..., G)
-    acc = _ident(x.shape[2:-1] + (G,), x.device)
-    prefix = []
-    for t in range(xc.shape[0]):
-        acc = _padd(c, acc, xc[t])
-        prefix.append(acc)
-    ident = _ident(x.shape[2:-1] + (G,), x.device)
-    incl = acc
-    for r in range(max(1, math.ceil(math.log2(G)))):
-        sh = 1 << r
-        shifted = torch.cat([ident[..., :sh], incl[..., : G - sh]], dim=-1) if sh < G else ident
-        incl = _padd(c, shifted, incl)
-    offs = torch.cat([ident[..., :1], incl[..., :-1]], dim=-1)
-    out = torch.stack([_padd(c, pt, offs) for pt in prefix], dim=-1)  # (3, L, ..., G, T)
-    out = out.reshape(x.shape)[..., :N]
-    return torch.flip(out, dims=(-1,)) if reverse else out
-
-
-def _reduce_last(c, x):
-    """Total point sum along the last axis by log-halving. x: (3, L, ..., N)."""
-    n = x.shape[-1]
-    t = x
-    while n > 1:
-        half = n // 2
-        red = _padd(c, t[..., :half], t[..., half : 2 * half])
-        if n % 2:
-            red = torch.cat([red, t[..., -1:]], dim=-1)
-            n = half + 1
-        else:
-            n = half
-        t = red
-    return t[..., 0]
+    # a segment that crosses into lane g ends there at most once: add the
+    # lane's inflow to that bucket, in place
+    return pk.padd_fixup(c, buckets, inflow, dig_sorted)
 
 
 def msm_buckets(c: CurveSpec, scalars: torch.Tensor, points_rows: torch.Tensor, G: int | None = None) -> torch.Tensor:
@@ -193,7 +117,7 @@ def msm_buckets(c: CurveSpec, scalars: torch.Tensor, points_rows: torch.Tensor, 
     pad = -N % G
     if pad:
         scalars = torch.cat([scalars, torch.zeros((pad, NLIMBS), dtype=ffl.DTYPE, device=dev)])
-        points_rows = torch.cat([points_rows, _ident((pad,), dev)], dim=-1)
+        points_rows = torch.cat([points_rows, pk.identity_rows((pad,), dev)], dim=-1)
         N += pad
     digits = scalars.T  # (W, N) unsigned in [0, 8191]
 
@@ -236,8 +160,7 @@ def msm_rows(c: CurveSpec, scalars: torch.Tensor, points_rows: torch.Tensor, G: 
     G chunks per window (default G_DEFAULT). Returns one projective point
     in rows layout (3, L, 1)."""
     buckets = msm_buckets(c, scalars, points_rows, G)
-    suffix = _chunked_prefix(c, buckets, reverse=True)  # (3, L, W, NB)
-    totals = _reduce_last(c, suffix[..., 1:])  # (3, L, W)
+    totals = pk.padd_weight_sum(c, buckets)  # (3, L, W): sum_d d B_d
 
     acc = totals[..., W - 1 : W]
     for w in range(W - 1):

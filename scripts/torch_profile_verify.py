@@ -13,7 +13,7 @@ card and runs one warm-up verify, then measures:
     remainder;
   * one verify under torch.profiler: device busy time (the union of all
     kernel intervals), the device's idle share of the wall time, device
-    time per group (the six port kernels, other torch kernels) and the top
+    time per group (the port kernels, other torch kernels) and the top
     kernels by device time.
 With --sweep-g 256,1024,... it first times, at each G (pmsm.G_DEFAULT, the
 MSM's chunks per window), the 2^16-point MSM with seeded scalars and the
@@ -38,12 +38,17 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+# kernel name substring -> group, first match wins (the template names of
+# csrc/*.cu, e.g. "void (anonymous namespace)::padd_kernel<0>(...)")
 GROUPS = {
     "transcript_kernel": "K2 transcript",
     "pow_chain_kernel": "K1 pow chain",
     "padd_mixed_select2_scan_kernel": "K6 padd_mixed_select2 (scan)",
+    "padd_select_scan_kernel": "K5 padd_select_scan (lane repair)",
     "padd_select_kernel": "K5 padd_select",
     "pdouble_kernel": "K4 pdouble",
+    "padd_weight_sum_kernel": "K3 padd_weight_sum (weighting)",
+    "padd_fixup_kernel": "K3 padd_fixup (fix-up)",
     "padd_kernel": "K3 padd",
 }
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions on
-the card. Exact: equal canonical limbs. Imports only the port, so it runs
+"""The port's CUDA kernels (K1-K7, and the MSM's one-launch phases of K3
+and K5) against their plain PyTorch versions on the card. Exact: equal
+canonical limbs. Imports only the port, so it runs
 where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -129,3 +130,53 @@ def test_pdouble_chain(dev, curve, k):
     got = pk.pdouble(curve, p, k)
     want = pk.pdouble_plain(curve, p, k)
     assert torch.equal(ffl.canon(curve.base, got.permute(0, 2, 1)), ffl.canon(curve.base, want.permute(0, 2, 1)))
+
+
+def _same(curve, a, b):
+    L = 22
+    return torch.equal(
+        ffl.canon(curve.base, a.reshape(3, L, -1).permute(0, 2, 1)),
+        ffl.canon(curve.base, b.reshape(3, L, -1).permute(0, 2, 1)),
+    )
+
+
+@pytest.mark.parametrize("W,D", [(20, 4096), (3, 4096), (20, 64), (3, 64), (3, 1024)])
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_weight_sum(dev, curve, W, D):
+    """K3's bucket weighting (D = 4096: eight blocks a window and the
+    last-block combine, four buckets a chunk; 1024: eight blocks, one
+    bucket a chunk; 64: one block) with identity buckets."""
+    b = _rows(curve, W * (D + 1), 10 + D, identity_every=6).reshape(3, 22, W, D + 1).to(dev)
+    got = pk.padd_weight_sum(curve, b)
+    assert got.shape == (3, 22, W)
+    assert _same(curve, got, pk.padd_weight_sum_plain(curve, b))
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_fixup(dev, curve):
+    """K3's fix-up over W G = 3 x 37 lanes (no multiple of the block) of
+    T = 3, clustered digits, identity buckets and inflows; in place."""
+    W, G, T, NB = 3, 37, 3, 17
+    rng = np.random.default_rng(12)
+    dig = torch.as_tensor(np.sort(rng.choice([0, 1, 4, 9, 10, 16], size=(W, G * T)), axis=-1)).to(dev)
+    buckets = _rows(curve, W * NB, 13, identity_every=6).reshape(3, 22, W, NB).to(dev)
+    inflow = _rows(curve, W * G, 14, identity_every=5).reshape(3, 22, W, G).to(dev)
+    want = pk.padd_fixup_plain(curve, buckets.clone(), inflow, dig)
+    got = buckets.clone()
+    assert pk.padd_fixup(curve, got, inflow, dig) is got
+    assert not _same(curve, want, buckets)
+    assert _same(curve, got, want)
+
+
+@pytest.mark.parametrize("G", [2, 16, 1024, 4096, 32768])
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_lane_scan(dev, curve, G):
+    """K5's Blelloch lane repair in one launch, random flags: lanes in
+    shared memory (G <= 2048) and in device memory (4096 and 32768, the
+    largest G served)."""
+    W = 1 if G > 4096 else 3
+    x = _rows(curve, W * G, 15, identity_every=5).reshape(3, 22, W, G).to(dev)
+    flags = torch.as_tensor(np.random.default_rng(G).random((W, G)) < 0.2).to(dev)
+    assert _same(curve, pk.padd_select_scan(curve, x, flags), pk.padd_select_scan_plain(curve, x, flags))
+    with pytest.raises(ValueError):  # 3 G lanes: no power of two
+        pk.padd_select_scan(curve, x.repeat(1, 1, 1, 3), flags.repeat(1, 3))

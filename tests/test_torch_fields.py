@@ -163,6 +163,12 @@ def field_host_lib(tmp_path_factory):
     lib.mbt_host_pow.restype = None
     lib.mbt_host_points.argtypes = [ctypes.c_int, ctypes.c_int, V, V, V, ctypes.c_int64]
     lib.mbt_host_points.restype = ctypes.c_int
+    I64 = ctypes.c_int64
+    lib.mbt_host_weight_sum.argtypes = [ctypes.c_int, V, V, I64, I64, I64, I64]
+    lib.mbt_host_fixup.argtypes = [ctypes.c_int, V, V, V, I64, I64, I64, I64]
+    lib.mbt_host_lane_scan.argtypes = [ctypes.c_int, V, V, V, I64, I64]
+    for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -225,8 +231,9 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
             assert canon_ints(spec, out) == want, op
             assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, fn(u, v)).numpy()), op
 
-    # K6's mixed add (points op 0) and K4's doubling (op 1) on mul32, on
-    # projective p with an identity lane and affine q.
+    # K6's mixed add (points op 0), K4's doubling (op 1) and K3's complete
+    # add (op 2, q projective: p's lanes reversed) on mul32, on projective p
+    # with an identity lane and affine q.
     curve = (PALLAS, VESTA)[fid]
     prng = random.Random(fid)
     n = 12
@@ -236,14 +243,74 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
     p_rows = torch.stack([ffl.from_ints(spec, col) for col in cols]).permute(0, 2, 1).contiguous()
     q_rows = torch.stack([ffl.from_ints(spec, [pt[i] for pt in aff[n:]]) for i in (0, 1)]).permute(0, 2, 1).contiguous()
     none = torch.zeros(n, dtype=torch.int32)
-    for op, want in (
-        (0, pk.padd_mixed_select2_plain(curve, p_rows, q_rows, none, none)),
-        (1, pk.pdouble_plain(curve, p_rows)),
+    p_rev = p_rows.flip(-1).contiguous()
+    for op, q, want in (
+        (0, q_rows, pk.padd_mixed_select2_plain(curve, p_rows, q_rows, none, none)),
+        (1, q_rows, pk.pdouble_plain(curve, p_rows)),
+        (2, p_rev, pk.padd_plain(curve, p_rows, p_rev)),
     ):
         out = torch.empty_like(p_rows)
-        assert field_host_lib.mbt_host_points(fid, op, p_rows.data_ptr(), q_rows.data_ptr(), out.data_ptr(), n) == 0
+        assert field_host_lib.mbt_host_points(fid, op, p_rows.data_ptr(), q.data_ptr(), out.data_ptr(), n) == 0
         assert (out < 8192).all()
         assert torch.equal(ffl.canon(spec, out.permute(0, 2, 1)), ffl.canon(spec, want.permute(0, 2, 1))), op
+
+
+def _point_rows(curve, n, seed, identity_every):
+    """(3, 22, n) projective rows of seeded multiples of the generator,
+    the identity every few lanes."""
+    rng = random.Random(seed)
+    p = curve.base.p
+    aff = [hmul(curve, rng.randrange(1, 1 << 64), curve.generator) for _ in range(8)]
+    cols = ([], [], [])
+    for i in range(n):
+        z = rng.randrange(1, p)
+        x, y = aff[i % 8]
+        vals = (0, 1, 0) if i % identity_every == 0 else (x * z % p, y * z % p, z)
+        for col, v in zip(cols, vals):
+            col.append(v)
+    return torch.stack([ffl.from_ints(curve.base, col) for col in cols]).permute(0, 2, 1).contiguous()
+
+
+@pytest.mark.parametrize("fid", [0, 1], ids=IDS)
+def test_msm_phases_host_build(field_host_lib, fid):
+    """The per-thread steps of the MSM's one-launch phases (points.cuh), run
+    by the host build in their kernels' order of blocks, threads and
+    levels, equal the plain versions exactly: the bucket weighting at
+    several (D, K chunks, C chunks a block), one block and several a window
+    (the last-block combine); the Blelloch lane repair at G = 1 to 64 with
+    random flags; the lane fix-up on W G = 3 x 37 lanes of T = 3."""
+    curve = (PALLAS, VESTA)[fid]
+    spec = curve.base
+    L = ffl.REP_LIMBS
+
+    def same(a, b):
+        return torch.equal(ffl.canon(spec, a.reshape(3, L, -1).permute(0, 2, 1)),
+                           ffl.canon(spec, b.reshape(3, L, -1).permute(0, 2, 1)))
+
+    for W, D, K, C in ((2, 64, 64, 64), (3, 64, 16, 4), (2, 128, 32, 8), (1, 1, 1, 1)):
+        b = _point_rows(curve, W * (D + 1), D + W, 5).reshape(3, L, W, D + 1)
+        out = torch.empty((3, L, W), dtype=torch.int64)
+        assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), W, D, K, C) == 0
+        assert same(out, pk.padd_weight_sum_plain(curve, b, K)), (W, D, K, C)
+    assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), 1, 64, 64, 4) != 0  # K / C > C
+
+    rng = np.random.default_rng(fid)
+    for W, G in ((2, 1), (2, 2), (3, 16), (1, 64)):
+        x = _point_rows(curve, W * G, G, 4).reshape(3, L, W, G)
+        flags = torch.as_tensor(rng.random((W, G)) < 0.3).to(torch.int32)
+        out = torch.empty_like(x)
+        assert field_host_lib.mbt_host_lane_scan(fid, x.data_ptr(), flags.data_ptr(), out.data_ptr(), W, G) == 0
+        assert same(out, pk.padd_select_scan_plain(curve, x, flags)), G
+
+    W, G, T, NB = 3, 37, 3, 17
+    dig = torch.as_tensor(np.sort(rng.choice([0, 2, 3, 8, 16], size=(W, G * T)), axis=-1))
+    buckets = _point_rows(curve, W * NB, 1, 6).reshape(3, L, W, NB)
+    inflow = _point_rows(curve, W * G, 2, 7).reshape(3, L, W, G)
+    got = buckets.clone()
+    assert field_host_lib.mbt_host_fixup(fid, got.data_ptr(), inflow.data_ptr(), dig.data_ptr(), W, G, T, NB) == 0
+    want = pk.padd_fixup_plain(curve, buckets.clone(), inflow, dig)
+    assert not same(want, buckets)
+    assert same(got, want)
 
 
 def test_device_selection_and_no_fallback():

@@ -1,6 +1,9 @@
 """The port's MSMs against the host MSM oracle of the JAX package: the
 plain ops/msm (per-lane path and windowed Pippenger) and ops/pmsm, the
-card's algorithm, here on the plain point ops. Exact: equal affine points."""
+card's algorithm, here on the plain point ops; pmsm's bucket weighting
+(K3) against the host oracle and its lane fix-up (K3) against the
+gather-add-select path it replaced. Exact: equal affine points or equal
+canonical limbs."""
 
 import random
 
@@ -123,3 +126,58 @@ def test_lane_segmented_exclusive_matches_sequential(G):
                 acc = jhc.add(jhc.PALLAS, acc, pts[w * G + h])
             want.append(acc)
     assert got == want
+
+
+def _rows_with_identities(pts):
+    return pk.to_rows(cv.from_affine_ints(PALLAS, pts)).contiguous()
+
+
+@pytest.mark.parametrize("chunks", [None, 8], ids=["one-bucket-chunks", "eight-bucket-chunks"])
+def test_weight_sum_plain_matches_host(chunks):
+    """K3's bucket weighting in its kernel's order (default: 64 chunks of
+    one bucket; 8 chunks of 8, so the walk and the doublings run) equals
+    sum_{d=1}^{D} d B_d of the host oracle for each window, at D = 64, W = 2,
+    with identity buckets; bucket 0 is not read."""
+    rng = random.Random(11)
+    D, W = 64, 2
+    pts = [None if i % 7 == 3 else pt for i, pt in enumerate(_affine_points(rng, W * (D + 1)))]
+    buckets = _rows_with_identities(pts).reshape(3, ffl.REP_LIMBS, W, D + 1)
+    got = pk.padd_weight_sum_plain(PALLAS, buckets, chunks)
+    got = cv.to_affine_ints(PALLAS, pk.from_rows(got))
+    want = []
+    for w in range(W):
+        acc = None
+        for d in range(1, D + 1):
+            acc = jhc.add(jhc.PALLAS, acc, jhc.mul(jhc.PALLAS, d, pts[w * (D + 1) + d]))
+        want.append(acc)
+    assert got == want
+
+
+def test_fixup_plain_matches_gather_path():
+    """K3's fix-up over the W G lane boundaries equals the path it replaced
+    (gather each bucket's lane inflow, add to all buckets, keep the sums
+    where the segment began in an earlier lane), exactly: W G = 3 x 37
+    lanes of T = 3, clustered digits so segments cross one or more lanes,
+    identity buckets and inflows."""
+    rng = random.Random(5)
+    W, G, T, NB = 3, 37, 3, 17
+    N = G * T
+    digs = torch.tensor([sorted(rng.choice([0, 1, 4, 9, 10, 16]) for _ in range(N)) for _ in range(W)])
+    pts = _affine_points(rng, 24)
+    buckets = _rows_with_identities([None if i % 6 == 0 else pts[i % 24] for i in range(W * NB)])
+    buckets = buckets.reshape(3, ffl.REP_LIMBS, W, NB)
+    inflow = _rows_with_identities([None if i % 5 == 0 else pts[(i * 7) % 24] for i in range(W * G)])
+    inflow = inflow.reshape(3, ffl.REP_LIMBS, W, G)
+
+    right = torch.searchsorted(digs, torch.arange(NB).expand(W, NB).contiguous(), right=True)
+    left = torch.cat([torch.zeros((W, 1), dtype=right.dtype), right[:, :-1]], dim=-1)
+    g_idx = torch.clamp(right - 1, min=0) // T
+    need_fix = (right > left) & (left < g_idx * T)
+    assert 10 < int(need_fix.sum()) < W * G
+    inflow_b = inflow[:, :, torch.arange(W).unsqueeze(1).expand(W, NB), g_idx]
+    fixed = pk.padd_plain(PALLAS, buckets.reshape(3, ffl.REP_LIMBS, -1), inflow_b.reshape(3, ffl.REP_LIMBS, -1))
+    want = torch.where(need_fix, fixed.reshape(buckets.shape), buckets)
+
+    got = pk.padd_fixup_plain(PALLAS, buckets.clone(), inflow, digs)
+    f = PALLAS.base
+    assert torch.equal(ffl.canon(f, got.movedim(1, -1)), ffl.canon(f, want.movedim(1, -1)))
