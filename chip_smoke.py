@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result):
   2. load the 2^16 Pallas SRS and the committed Kimchi fixture
      (n = 2^16, B = 32), build the verifier index on the card, and run one
      verify while recording the inputs each kernel wrapper receives;
-  3. time the product-latency probe (the critical-path floors of K2, K4
-     and the K6 scan);
+  3. time the product-latency probe (mul, mul32 and sqr32: the
+     critical-path floors of K1, K2, K4 and the K6 scan);
   4. the 2^16-point MSM with seeded scalars, recording K6's scan input:
      pmsm (K3-K6) vs the plain MSM;
   5. hold each kernel against its plain PyTorch version (exact: equal
@@ -24,8 +24,12 @@ Phases (any failure exits non-zero and prints no result):
      longer calls) on the first up-sweep level of the recorded repair and
      seeded lanes; K7 (no caller in the system) on the first step of K6's
      recorded scan with q's Z row made explicit plus a seeded set with
-     identity lanes on each curve. Time each kernel at every recorded
-     shape (device ms per verify) and the plain version at the largest;
+     identity lanes on each curve, and seeded sets of 20,480 lanes and of
+     the ragged 1, 33 and 4,097 lanes on each curve; K1 also on seeded
+     elements (0, 1, p - 1, lazy rows) at n = 1, 33 and 4,097 in each field
+     at e = p - 2, 2^32, 2^40 + 1, a seeded 255-bit e and an e with a run of
+     100 zero bits. Time each kernel at every recorded shape (device ms
+     per verify) and the plain version at the largest;
   6. the main path: launch counters set to 0, one batched verify (must
      accept, every kernel of the path launched), then a tampered copy
      (must reject);
@@ -62,6 +66,9 @@ PEAK_OPS_PER_S = 67e12
 # reduction is half of that.
 OPS_PER_PRODUCT = 512
 OPS_PER_HALF = 256
+# A Montgomery squaring (fld::sqr32): 36 word products for a^2, 64 for the
+# reduction, each a low and a high half: 200 multiply-adds.
+OPS_PER_SQUARE = 400
 LIMB_BYTES = 8
 L = 22
 
@@ -161,10 +168,16 @@ def kernel_work(name: str, args) -> tuple[float, float]:
     """(bytes, operations) the function needs on these inputs: each input
     read once, each output written once; products as this data needs them."""
     if name == "pow_const":
+        # the window chain: squarings, multiplies and the odd-power table, and
+        # three conversion products; the schedule read once
+        from mina_bridge_tpu_torch.fields import chain_kernel
+
         spec, x, e = args
         n = x.numel() // L
-        products = (e.bit_length() - 1) + (bin(e).count("1") - 1)
-        return 2 * n * L * LIMB_BYTES + (e.bit_length() - 1) * 4, n * products * OPS_PER_PRODUCT
+        sched = chain_kernel.window_schedule(e, chain_kernel.WINDOW)
+        sq, mu, tab = chain_kernel.schedule_products(sched)
+        ops = (sq + (1 if tab else 0)) * OPS_PER_SQUARE + (mu + max(tab - 1, 0) + 3) * OPS_PER_PRODUCT
+        return 2 * n * L * LIMB_BYTES + sched.nbytes, n * ops
     if name == "transcript_blocks":
         ps, state, adds = args
         T, B = adds.shape[0], state.numel() // (3 * L)
@@ -375,8 +388,42 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
         for W, G in ((3, 16), (2, 4096)):
             x = p[..., : W * G].reshape(3, L, W, G) if W * G <= n else p.repeat(1, 1, 2).reshape(3, L, W, G)
             k5s.append((curve, x.contiguous(), torch.as_tensor(flag_rng.random((W, G)) < 0.2, device=dev)))
-    return {"transcript_blocks": k2, "padd_mixed_select": seeded, "padd_select": seeded_k5, "pdouble": k4,
-            "padd_mixed_select2": k6, "padd_weight_sum": k3w, "padd_fixup": k3f, "padd_select_scan": k5s}
+    k7 = list(seeded)
+    for i, curve in enumerate((PALLAS, VESTA)):
+        for n in (1, 33, 4097, 20480):
+            p = seeded_point_rows(curve, n, seed + 60 + i, 7, True).to(dev)
+            q = seeded_point_rows(curve, n, seed + 70 + i, 5, False).to(dev)
+            keep = (torch.arange(n, device=dev) % 3 == 1).to(torch.int32)
+            k7.append((curve, p, q, keep, (q[2, 0] == 0).to(torch.int32)))
+    return {"transcript_blocks": k2, "padd_mixed_select": k7, "padd_select": seeded_k5, "pdouble": k4,
+            "padd_mixed_select2": k6, "padd_weight_sum": k3w, "padd_fixup": k3f, "padd_select_scan": k5s,
+            "pow_const": k1_inputs(seed, dev)}
+
+
+def k1_inputs(seed: int, dev) -> list:
+    """K1 sets in each field: n = 1, 33 and 4,097 elements, led by 0, 1 and
+    p - 1, every other one a lazy row (limbs of 2^13 + 1 or more), at
+    e = p - 2, 2^32, 2^40 + 1, a seeded 255-bit e and an e with a run of
+    100 zero bits."""
+    import torch
+
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.params import FP, FQ
+
+    rng = np.random.default_rng(seed + 80)
+    e255 = int.from_bytes(rng.bytes(32), "little") | (1 << 254)
+    e255 &= (1 << 255) - 1
+    gap = (int.from_bytes(rng.bytes(16), "little") << 140) | (1 << 139) | (int.from_bytes(rng.bytes(5), "little") >> 1)
+    sets = []
+    for spec in (FP, FQ):
+        for n in (1, 33, 4097):
+            xs = [0, 1, spec.p - 1] + [int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(n)]
+            x = ffl.from_ints(spec, xs[:n], dev)
+            lazy = ffl.mul(spec, x, ffl.ones(spec, (n,), dev))  # non-canonical limbs
+            x = torch.where((torch.arange(n, device=dev) % 2 == 1)[:, None], lazy, x)
+            for e in (spec.p - 2, 1 << 32, (1 << 40) + 1, e255, gap):
+                sets.append((spec, x, e))
+    return sets
 
 
 CHAINS = ("pdouble", "padd_mixed_select2", "padd_weight_sum", "padd_select_scan")
@@ -494,6 +541,24 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
             row["critical_path_floor_ms_per_verify"] = sum(
                 calls.get(k, 0) * dependent_products(name, a) * lat * 1e-6 for k, a in timed.items()
             )
+        if name == "pow_const":
+            from mina_bridge_tpu_torch.fields.chain_kernel import WINDOW, schedule_products, window_schedule
+
+            def k1_floor(a):
+                # the chain's squarings and multiplies, each at the probe's
+                # latency of the 2-lane product that takes it; the
+                # conversions in and out on mul32
+                fname = "fp" if a[0].p == FP.p else "fq"
+                sq, mu, tab = schedule_products(window_schedule(a[2], WINDOW))
+                n_sqr, n_mul = sq + (1 if tab else 0), mu + max(tab - 1, 0)
+                ns = (n_sqr + n_mul) * probe[f"group2_{fname}"] + 2 * probe[f"mul32_{fname}"]
+                return n_sqr, n_mul, ns * 1e-6
+
+            n_sqr, n_mul, floor = k1_floor(args)
+            row["dependent_products"] = {"squarings": n_sqr, "multiplies": n_mul, "conversions": 2,
+                                         "product": "group2"}
+            row["critical_path_floor_ms"] = floor
+            row["critical_path_floor_ms_per_verify"] = sum(calls.get(k, 0) * k1_floor(a)[2] for k, a in timed.items())
         if name == "padd_mixed_select2" and msm_scan is not None:
             row["ms_msm_2e16"] = cuda_ms(lambda: kern(*msm_scan), 20)
             row["shape_msm_2e16"] = [list(t.shape) for t in msm_scan[1:]]
@@ -504,7 +569,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
 
 def probe_latency(dev) -> dict:
     """ns per dependent field product (csrc/probe.cu: one warp, each lane a
-    chain of products), for fld::mul and fld::mul32 in each field; each
+    chain of products), for fld::mul, fld::mul32, fld::sqr32 and the
+    2-lane group product (16 chains of two lanes) in each field; each
     chain's result is checked against Python ints."""
     import torch
 
@@ -520,7 +586,8 @@ def probe_latency(dev) -> dict:
         xs = [int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(64)]
         x = ffl.from_ints(spec, xs, dev).contiguous()
         want = [xs[i] * pow(xs[32 + i], iters, spec.p) % spec.p for i in range(32)]
-        for kind, label in enumerate(("mul", "mul32")):
+        want_sqr = [pow(xs[i], 1 << iters, spec.p) for i in range(32)]
+        for kind, label in enumerate(("mul", "mul32", "sqr32", "group2")):
             res = torch.empty((32, L), dtype=torch.int64, device=dev)
 
             def run(kind=kind, res=res, fid=fid, x=x):
@@ -529,7 +596,8 @@ def probe_latency(dev) -> dict:
                     raise RuntimeError(f"product probe failed to launch: cudaError {rc}")
 
             ms = cuda_ms(run, 3)
-            if ffl.to_ints(spec, res.cpu()) != want:
+            got = ffl.to_ints(spec, res.cpu())
+            if (got[:16] if label == "group2" else got) != {"sqr32": want_sqr, "group2": want[:16]}.get(label, want):
                 raise RuntimeError(f"product probe {label} ({fname}) computed a wrong chain")
             out[f"{label}_{fname}"] = ms * 1e6 / iters
     log("ns per dependent product (one warp):", {k: round(v, 1) for k, v in out.items()})

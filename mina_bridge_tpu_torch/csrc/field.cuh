@@ -9,10 +9,11 @@
 // (R = 2^256), fully reduced to [0, p). The TPU library kept 22 lazy
 // 13-bit limbs in int32 because the TPU has no 64-bit multiply; here a
 // CIOS Montgomery product does the work of the 22x22 limb convolution and
-// its folds. There are two: mul, on four 64-bit words (K1, K3, K5, K7),
-// and mul32, on the same value as eight 32-bit limbs with PTX carry
-// chains (K2, K4, K6; below), which runs a lone dependent chain 1.43x
-// faster on an H100. mulx<F, P> picks one at compile time.
+// its folds. There are two: mul, on four 64-bit words, and mul32, on the
+// same value as eight 32-bit limbs with PTX carry chains (below), which
+// runs a lone dependent chain 1.43x faster on an H100 and is the product
+// of the kernels' inner work; sqr32 is its squaring, 36 word products.
+// mulx<F, P> picks one at compile time.
 //
 // The kernels' tensors keep the torch port's layout: 22 non-negative
 // int64 limbs of 13 bits (a lazy value may exceed p and reach ~2^290).
@@ -406,6 +407,191 @@ FHD Fe redc32(const uint32_t T[17]) {
   return csub32<F>(t);
 }
 
+// t[0..N] += a[0..N-1] * b, where the caller knows the sum fits in
+// t[0..N] (no carry leaves t[N]): the rows of sqr32's triangle.
+template <int N>
+FHD void mac_row_short(uint32_t* t, const uint32_t* a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  if constexpr (N == 1)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %2, %3, %0;\n\t"
+        "addc.u32       %1, %1, 0;\n\t"
+        "mad.hi.u32     %1, %2, %3, %1;"
+        : "+r"(t[0]), "+r"(t[1])
+        : "r"(a[0]), "r"(b));
+  else if constexpr (N == 2)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %3, %5, %0;\n\t"
+        "madc.lo.cc.u32 %1, %4, %5, %1;\n\t"
+        "addc.u32       %2, %2, 0;\n\t"
+        "mad.hi.cc.u32  %1, %3, %5, %1;\n\t"
+        "madc.hi.u32    %2, %4, %5, %2;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2])
+        : "r"(a[0]), "r"(a[1]), "r"(b));
+  else if constexpr (N == 3)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %4, %7, %0;\n\t"
+        "madc.lo.cc.u32 %1, %5, %7, %1;\n\t"
+        "madc.lo.cc.u32 %2, %6, %7, %2;\n\t"
+        "addc.u32       %3, %3, 0;\n\t"
+        "mad.hi.cc.u32  %1, %4, %7, %1;\n\t"
+        "madc.hi.cc.u32 %2, %5, %7, %2;\n\t"
+        "madc.hi.u32    %3, %6, %7, %3;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(b));
+  else if constexpr (N == 4)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %5, %9, %0;\n\t"
+        "madc.lo.cc.u32 %1, %6, %9, %1;\n\t"
+        "madc.lo.cc.u32 %2, %7, %9, %2;\n\t"
+        "madc.lo.cc.u32 %3, %8, %9, %3;\n\t"
+        "addc.u32       %4, %4, 0;\n\t"
+        "mad.hi.cc.u32  %1, %5, %9, %1;\n\t"
+        "madc.hi.cc.u32 %2, %6, %9, %2;\n\t"
+        "madc.hi.cc.u32 %3, %7, %9, %3;\n\t"
+        "madc.hi.u32    %4, %8, %9, %4;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b));
+  else if constexpr (N == 5)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %6, %11, %0;\n\t"
+        "madc.lo.cc.u32 %1, %7, %11, %1;\n\t"
+        "madc.lo.cc.u32 %2, %8, %11, %2;\n\t"
+        "madc.lo.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.lo.cc.u32 %4, %10, %11, %4;\n\t"
+        "addc.u32       %5, %5, 0;\n\t"
+        "mad.hi.cc.u32  %1, %6, %11, %1;\n\t"
+        "madc.hi.cc.u32 %2, %7, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %8, %11, %3;\n\t"
+        "madc.hi.cc.u32 %4, %9, %11, %4;\n\t"
+        "madc.hi.u32    %5, %10, %11, %5;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(b));
+  else if constexpr (N == 6)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %7, %13, %0;\n\t"
+        "madc.lo.cc.u32 %1, %8, %13, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %13, %2;\n\t"
+        "madc.lo.cc.u32 %3, %10, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+        "madc.lo.cc.u32 %5, %12, %13, %5;\n\t"
+        "addc.u32       %6, %6, 0;\n\t"
+        "mad.hi.cc.u32  %1, %7, %13, %1;\n\t"
+        "madc.hi.cc.u32 %2, %8, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.hi.cc.u32 %4, %10, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+        "madc.hi.u32    %6, %12, %13, %6;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(b));
+  else if constexpr (N == 7)
+    asm volatile(
+        "mad.lo.cc.u32  %0, %8, %15, %0;\n\t"
+        "madc.lo.cc.u32 %1, %9, %15, %1;\n\t"
+        "madc.lo.cc.u32 %2, %10, %15, %2;\n\t"
+        "madc.lo.cc.u32 %3, %11, %15, %3;\n\t"
+        "madc.lo.cc.u32 %4, %12, %15, %4;\n\t"
+        "madc.lo.cc.u32 %5, %13, %15, %5;\n\t"
+        "madc.lo.cc.u32 %6, %14, %15, %6;\n\t"
+        "addc.u32       %7, %7, 0;\n\t"
+        "mad.hi.cc.u32  %1, %8, %15, %1;\n\t"
+        "madc.hi.cc.u32 %2, %9, %15, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %15, %3;\n\t"
+        "madc.hi.cc.u32 %4, %11, %15, %4;\n\t"
+        "madc.hi.cc.u32 %5, %12, %15, %5;\n\t"
+        "madc.hi.cc.u32 %6, %13, %15, %6;\n\t"
+        "madc.hi.u32    %7, %14, %15, %7;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(b));
+#else
+  uint64_t c = 0;
+  for (int j = 0; j < N; j++) {
+    const uint64_t s = (uint64_t)a[j] * b + t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  t[N] += (uint32_t)c;
+#endif
+}
+
+// Rows I.. of the cross-product triangle: w[2I + 1 ..] += x[I + 1..7] x[I].
+// After row I the sum is below 2^(32 (I + 9)) (it is sum_{i <= I} x_i 2^(32 i)
+// times a value below 2^256), so row I's top word w[I + 8] never carries.
+template <int I>
+FHD void sqr_rows(uint32_t w[17], const uint32_t x[8]) {
+  if constexpr (I < 7) {
+    mac_row_short<7 - I>(w + 2 * I + 1, x + I + 1, x[I]);
+    sqr_rows<I + 1>(w, x);
+  }
+}
+
+// Montgomery square a^2 / R mod p (a < p), equal to mul32<F>(a, a): each
+// cross product x_i x_j (i < j) once, 28 word products, then the sum
+// doubled and the 8 squares x_i^2 added: 36 word products for the 64 of
+// mul32, then the same reduction as redc32.
+template <int F>
+FHD Fe sqr32(const Fe& a) {
+  uint32_t x[8], w[17];
+  split32(a, x);
+#pragma unroll
+  for (int i = 0; i < 17; i++) w[i] = 0;
+  sqr_rows<0>(w, x);  // the cross sum, below a^2 / 2 < 2^511
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "add.cc.u32     %1, %1, %1;\n\t"
+      "addc.cc.u32    %2, %2, %2;\n\t"
+      "addc.cc.u32    %3, %3, %3;\n\t"
+      "addc.cc.u32    %4, %4, %4;\n\t"
+      "addc.cc.u32    %5, %5, %5;\n\t"
+      "addc.cc.u32    %6, %6, %6;\n\t"
+      "addc.cc.u32    %7, %7, %7;\n\t"
+      "addc.cc.u32    %8, %8, %8;\n\t"
+      "addc.cc.u32    %9, %9, %9;\n\t"
+      "addc.cc.u32    %10, %10, %10;\n\t"
+      "addc.cc.u32    %11, %11, %11;\n\t"
+      "addc.cc.u32    %12, %12, %12;\n\t"
+      "addc.cc.u32    %13, %13, %13;\n\t"
+      "addc.cc.u32    %14, %14, %14;\n\t"
+      "addc.u32       %15, %15, %15;\n\t"
+      "mad.lo.cc.u32  %0, %16, %16, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %16, %1;\n\t"
+      "madc.lo.cc.u32 %2, %17, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %17, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %18, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %18, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %19, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %19, %7;\n\t"
+      "madc.lo.cc.u32 %8, %20, %20, %8;\n\t"
+      "madc.hi.cc.u32 %9, %20, %20, %9;\n\t"
+      "madc.lo.cc.u32 %10, %21, %21, %10;\n\t"
+      "madc.hi.cc.u32 %11, %21, %21, %11;\n\t"
+      "madc.lo.cc.u32 %12, %22, %22, %12;\n\t"
+      "madc.hi.cc.u32 %13, %22, %22, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %23, %14;\n\t"
+      "madc.hi.u32    %15, %23, %23, %15;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4]), "+r"(w[5]), "+r"(w[6]), "+r"(w[7]),
+        "+r"(w[8]), "+r"(w[9]), "+r"(w[10]), "+r"(w[11]), "+r"(w[12]), "+r"(w[13]), "+r"(w[14]), "+r"(w[15])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]));
+#else
+  uint64_t c = 0;
+  for (int k = 1; k < 16; k++) {  // double (w[0] is 0; no carry leaves w[15])
+    const uint64_t s = ((uint64_t)w[k] << 1) + c;
+    w[k] = (uint32_t)s;
+    c = s >> 32;
+  }
+  c = 0;
+  for (int k = 0; k < 8; k++) {  // + x_k^2 at word 2k
+    const uint64_t sq = (uint64_t)x[k] * x[k];
+    uint64_t s = (uint64_t)w[2 * k] + (uint32_t)sq + c;
+    w[2 * k] = (uint32_t)s;
+    s = (uint64_t)w[2 * k + 1] + (sq >> 32) + (s >> 32);
+    w[2 * k + 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+#endif
+  return redc32<F>(w);  // a^2 < p^2 < 2^256 p
+}
+
 // One row of a 3x3 MDS product, reduced once: m0 s0 + m1 s1 + m2 s2 (all
 // operands < p). Each term is below p^2 and 3 p^2 < 2^256 p (3p < 2^256
 // for both Pasta primes, p = 2^254 + a small term), so the 512-bit sum of
@@ -428,11 +614,14 @@ FHD Fe mds_row(const Fe& m0, const Fe& s0, const Fe& m1, const Fe& s1, const Fe&
 
 // How a kernel's formulas take their products; all give the same value,
 // a * b / R mod p in [0, p), with the same precondition (a * b < 2^256 * p,
-// e.g. b < p). MUL64 inlines mul at each use (K1, K3, K5, K7). MUL32_CALL
-// calls one out-of-line mul32 body per field (K4, K6): a chain kernel runs
-// ~20 products a step, and ~20 inlined copies of a product of several
-// hundred instructions overflow the instruction cache that its few warps
-// run from.
+// e.g. b < p). MUL64 inlines mul at each use: the limb conversions'
+// default, which only K2's conversions (outside its rounds) and the
+// probe's mul kind still take. MUL32_CALL calls one out-of-line mul32 body
+// per field (K3-K6, K1's conversions): a chain kernel runs ~20 products a
+// step, and ~20 inlined copies of a product of several hundred
+// instructions overflow the instruction cache that its few warps run
+// from. K7 calls mul32 itself, at one site in a loop (points.cuh, k7), and
+// K1's chain takes its own 2-lane product (pow_chain.cuh).
 enum Product { MUL64 = 0, MUL32_CALL = 1 };
 
 template <int F>
@@ -448,9 +637,9 @@ FHD Fe mulx(const Fe& a, const Fe& b) {
     return mul<F>(a, b);
 }
 
-// 22 non-negative limbs (limb i at x[i * stride], each < 2^40) -> Montgomery form.
-template <int F, int P = MUL64>
-FHD Fe from_limbs(const int64_t* x, int64_t stride) {
+// 22 non-negative limbs (limb i at x[i * stride], each < 2^40) summed into
+// the 256-bit words lo and the bits above 2^256, hi (no product).
+FHD void limbs_to_words(const int64_t* x, int64_t stride, Fe& lo, Fe& hi) {
   uint64_t w[6] = {0, 0, 0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < REP_LIMBS; i++) {
@@ -462,16 +651,20 @@ FHD Fe from_limbs(const int64_t* x, int64_t stride) {
 #pragma unroll
     for (int m = k + 2; m < 6; m++) w[m] = adc(w[m], 0, c);
   }
-  const Fe lo = {{w[0], w[1], w[2], w[3]}};
-  const Fe hi = {{w[4], w[5], 0, 0}};
+  lo = {{w[0], w[1], w[2], w[3]}};
+  hi = {{w[4], w[5], 0, 0}};
+}
+
+// 22 non-negative limbs (limb i at x[i * stride], each < 2^40) -> Montgomery form.
+template <int F, int P = MUL64>
+FHD Fe from_limbs(const int64_t* x, int64_t stride) {
+  Fe lo, hi;
+  limbs_to_words(x, stride, lo, hi);
   return add<F>(mulx<F, P>(lo, Params<F>::r2()), mulx<F, P>(hi, Params<F>::r3()));
 }
 
-// Montgomery form -> canonical value as 22 limbs of 13 bits.
-template <int F, int P = MUL64>
-FHD void to_limbs(const Fe& a, int64_t* out, int64_t stride) {
-  const Fe unit = {{1, 0, 0, 0}};
-  const Fe c = mulx<F, P>(a, unit);
+// A canonical value (not Montgomery form) -> 22 limbs of 13 bits.
+FHD void words_to_limbs(const Fe& c, int64_t* out, int64_t stride) {
 #pragma unroll
   for (int i = 0; i < REP_LIMBS; i++) {
     const int bit = LIMB_BITS * i, k = bit >> 6, off = bit & 63;
@@ -482,6 +675,13 @@ FHD void to_limbs(const Fe& a, int64_t* out, int64_t stride) {
     }
     out[i * stride] = (int64_t)(v & LIMB_MASK);
   }
+}
+
+// Montgomery form -> canonical value as 22 limbs of 13 bits.
+template <int F, int P = MUL64>
+FHD void to_limbs(const Fe& a, int64_t* out, int64_t stride) {
+  const Fe unit = {{1, 0, 0, 0}};
+  words_to_limbs(mulx<F, P>(a, unit), out, stride);
 }
 
 }  // namespace fld

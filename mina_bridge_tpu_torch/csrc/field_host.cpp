@@ -10,6 +10,7 @@
 
 #include "field.cuh"
 #include "points.cuh"
+#include "pow_chain.cuh"
 
 namespace {
 
@@ -47,6 +48,18 @@ int run(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n) {
       map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) {
         return fld::mds_row<F>(x, y, y, y, x, x);
       });
+      return 0;
+    case 7:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe&) { return fld::sqr32<F>(x); });
+      return 0;
+    case 8:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::group_mul_lanes<F, 2>(x, y); });
+      return 0;
+    case 9:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::group_mul_lanes<F, 4>(x, y); });
+      return 0;
+    case 10:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::group_mul_lanes<F, 8>(x, y); });
       return 0;
   }
   return 1;
@@ -115,23 +128,42 @@ void lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, int
 
 bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
 
+// pow_group_kernel: each element's chain on the 2-lane product (its lanes
+// in turn), its table in a local column.
 template <int F>
-void pow_chain(const int64_t* x, int64_t* out, const int32_t* bits, int nbits, int64_t n) {
+void pow_chain(const int64_t* x, int64_t* out, const int32_t* sched, int nsteps, int tsize, int64_t n) {
+  std::vector<fld::Fe> tab(tsize);
   for (int64_t i = 0; i < n; i++) {
-    const fld::Fe base = fld::from_limbs<F>(x + i * fld::REP_LIMBS, 1);
-    fld::Fe acc = base;
-    for (int r = 0; r < nbits; r++) {
-      acc = fld::square<F>(acc);
-      if (bits[r]) acc = fld::mul<F>(acc, base);
-    }
-    fld::to_limbs<F>(acc, out + i * fld::REP_LIMBS, 1);
+    const fld::Fe base = fld::from_limbs<F, MUL>(x + i * fld::REP_LIMBS, 1);
+    const fld::Fe acc = fld::pow_window<F>(base, sched, nsteps, tsize, tab.data(), 1, fld::GroupProduct<F, 2>{0});
+    fld::to_limbs<F, MUL>(acc, out + i * fld::REP_LIMBS, 1);
+  }
+}
+
+// padd_mixed_select_kernel: blocks of lpb lanes, each phase's tasks in
+// turn (in reverse when asked: the result must not depend on it).
+template <int F>
+void k7_blocks(const int64_t* p, const int64_t* q, const int32_t* keep_q, const int32_t* q_inf, int64_t* out,
+               int64_t n, int lpb, bool reverse) {
+  std::vector<uint64_t> slots(4 * pts::k7::LANE_SLOTS * lpb);
+  std::vector<int> sel(lpb);
+  for (int64_t b0 = 0; b0 < n; b0 += lpb) {
+    for (int l = 0; l < lpb; l++) sel[l] = b0 + l < n ? pts::k7::select(keep_q[b0 + l], q_inf[b0 + l]) : pts::k7::RX;
+    for (int phase = 0; phase < pts::k7::PHASES; phase++)
+      for (int i = 0; i < pts::k7::TASKS; i++)
+        for (int l = 0; l < lpb; l++) {
+          const pts::k7::Slots S{slots.data(), lpb, l};
+          pts::k7::task<F>(phase, reverse ? pts::k7::TASKS - 1 - i : i, S, sel[l], p, q, out, b0 + l, n);
+        }
   }
 }
 
 }  // namespace
 
 // op: 0 mul, 1 square (of a), 2 add, 3 sub, 4 multiply a by 15, 5 mul32
-// (the 32-bit-limb product), 6 mds_row: a b + b b + a a reduced once.
+// (the 32-bit-limb product), 6 mds_row: a b + b b + a a reduced once,
+// 7 sqr32 (of a), 8-10 the lane-group product of pow_chain.cuh over 2, 4
+// and 8 lanes, run lane by lane.
 extern "C" int mbt_host_binop(int field, int op, const int64_t* a, const int64_t* b, int64_t* out,
                               int64_t n) {
   return field == 0 ? run<0>(op, a, b, out, n) : run<1>(op, a, b, out, n);
@@ -171,11 +203,20 @@ extern "C" int mbt_host_lane_scan(int field, const int64_t* carry, const int32_t
   return 0;
 }
 
-// The pow_chain.cu ladder: bits after the exponent's leading one, msb first.
-extern "C" void mbt_host_pow(int field, const int64_t* x, int64_t* out, const int32_t* bits,
-                             int nbits, int64_t n) {
-  if (field == 0)
-    pow_chain<0>(x, out, bits, nbits, n);
-  else
-    pow_chain<1>(x, out, bits, nbits, n);
+// K1's chain (pow_chain.cu) with the kernel's arguments.
+extern "C" int mbt_host_pow(int field, const int64_t* x, int64_t* out, const int32_t* sched, int nsteps, int tsize,
+                            int64_t n) {
+  if (nsteps < 1 || tsize < 1 || tsize > 16) return 1;
+  (field == 0 ? pow_chain<0> : pow_chain<1>)(x, out, sched, nsteps, tsize, n);
+  return 0;
+}
+
+// K7 (points.cu, k7::task) with the kernel's arguments: p, q, out (3, 22,
+// n) rows, q's Z row 0 or 1; keep_q, q_inf (n,) int32; lpb lanes a block;
+// reverse: run each phase's tasks last to first.
+extern "C" int mbt_host_k7(int field, const int64_t* p, const int64_t* q, const int32_t* keep_q,
+                           const int32_t* q_inf, int64_t* out, int64_t n, int lpb, int reverse) {
+  if (lpb < 1) return 1;
+  (field == 0 ? k7_blocks<0> : k7_blocks<1>)(p, q, keep_q, q_inf, out, n, lpb, reverse != 0);
+  return 0;
 }

@@ -24,10 +24,14 @@
 // with the lane last, so thread n reads limb l of coordinate c at
 // (c * 22 + l) * N + n and a warp's loads are contiguous.
 //
-// K3 padd, K5 padd_select, K7: one thread per lane, one add per launch.
-// Bound on this card: bytes at wide shapes (11-14 products a lane, ~6-7 k
-// 32-bit multiply-adds, against 1-1.6 KB of int64 limbs in and out),
-// launches at the narrow ones.
+// K3 padd, K5 padd_select, K7: one add per lane and launch. Bound on this
+// card: bytes at wide shapes (11-14 products a lane, ~6-7 k 32-bit
+// multiply-adds, against 1-1.6 KB of int64 limbs in and out), launches at
+// the narrow ones. With one thread a lane (padd, padd_select) a wide
+// launch has ~1 warp a scheduler, and each thread's chain of ~25
+// products sets the time instead (PERF.md); K7 splits each lane over six
+// threads (points.cuh, k7): its conversions and its add run as a program
+// of six phases, one inlined mul32 for all its products.
 //
 // K4, K6 and the MSM phases are chains, and a chain is bound by the
 // latency of its instructions, not by bytes: K4 walks 13 doublings per
@@ -58,6 +62,10 @@ constexpr int SCAN_THREADS = 64;
 constexpr int PHASE_THREADS = 256;  // the lane repair's blocks, the most the weighting's take
 constexpr size_t MAX_SHARED = 232448;  // bytes a block may take on an H100
 constexpr int MUL = fld::MUL32_CALL;
+// K7's lanes a block (scripts/torch_kernel_sweep.py took 32 of 16, 32 and
+// 64; PERF.md), six threads a lane; at least 5 blocks an SM, so the 640
+// blocks of 20,480 lanes are resident in one wave on 132 SMs.
+constexpr int K7_LANES = 32, K7_THREADS = pts::k7::TASKS * K7_LANES, K7_MIN_BLOCKS = 5;
 
 unsigned blocks_for(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
@@ -236,26 +244,14 @@ __global__ void __launch_bounds__(PHASE_THREADS)
   for (int i = t; i < G; i += nt) pts::store_pt<F, MUL>(a[i], out, base + i, lanes);
 }
 
+// K7 (points.cuh: k7::block): K7_LANES lanes a block, six threads a lane.
 template <int F>
-__global__ void padd_mixed_select_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
-                                         const int32_t* __restrict__ keep_q,
-                                         const int32_t* __restrict__ q_inf, int64_t* __restrict__ out,
-                                         int64_t N) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  if (keep_q[n]) {
-    pts::store_pt<F, fld::MUL64>(pts::load_pt<F, fld::MUL64>(q, n, N), out, n, N);
-    return;
-  }
-  const Pt pp = pts::load_pt<F, fld::MUL64>(p, n, N);
-  if (q_inf[n]) {
-    pts::store_pt<F, fld::MUL64>(pp, out, n, N);
-    return;
-  }
-  const int64_t cs = (int64_t)fld::REP_LIMBS * N;
-  const Fe x2 = fld::from_limbs<F>(q + n, N);
-  const Fe y2 = fld::from_limbs<F>(q + cs + n, N);
-  pts::store_pt<F, fld::MUL64>(pts::padd_mixed_f<F, fld::MUL64>(pp, x2, y2), out, n, N);
+__global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
+    padd_mixed_select_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
+                             const int32_t* __restrict__ keep_q, const int32_t* __restrict__ q_inf,
+                             int64_t* __restrict__ out, int64_t N) {
+  extern __shared__ uint64_t slots[];
+  pts::k7::block<F>(K7_LANES, slots, p, q, keep_q, q_inf, out, N);
 }
 
 }  // namespace
@@ -387,10 +383,12 @@ extern "C" int mbt_padd_mixed_select(int field, const int64_t* p, const int64_t*
                                      int64_t N, void* stream) {
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+    const size_t smem = pts::k7::block_bytes(K7_LANES);  // 25,728 bytes
+    const unsigned b = blocks_for(N, K7_LANES);
     if (field == 0)
-      padd_mixed_select_kernel<0><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, keep_q, q_inf, out, N);
+      padd_mixed_select_kernel<0><<<b, K7_THREADS, smem, s>>>(p, q, keep_q, q_inf, out, N);
     else
-      padd_mixed_select_kernel<1><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, keep_q, q_inf, out, N);
+      padd_mixed_select_kernel<1><<<b, K7_THREADS, smem, s>>>(p, q, keep_q, q_inf, out, N);
   }
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,14 @@
 
 Counterpart of mina_bridge_tpu/fields/chain_kernel.py::pow_const_rows,
 which runs ffl.pow_const's square-and-multiply ladder as one Pallas
-block. The CUDA kernel is csrc/pow_chain.cu: one thread per element, the
-ladder in registers (see the note there on what bounds it).
+block. The CUDA kernel is csrc/pow_chain.cu: a left-to-right
+sliding-window chain whose schedule `window_schedule` builds from e here,
+each element's products split over a group of two lanes (see the note
+there on what bounds it).
 
 `pow_const_rows` takes ffl-layout (..., 22) limbs. On a CPU tensor it runs
-`pow_const_plain`, the same ladder in plain torch field ops; on a CUDA
-tensor it launches the kernel or raises.
+`pow_const_plain`, the plain ladder in torch field ops; on a CUDA tensor
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,10 +31,46 @@ def field_id(spec: FieldSpec) -> int:
     return 0 if spec.p == FP.p else 1
 
 
+# The window width: the fastest of 3, 4 and 5 in
+# scripts/torch_kernel_sweep.py on an H100 (PERF.md).
+WINDOW = 4
+
+
+def window_schedule(e: int, w: int) -> np.ndarray:
+    """x^e as a left-to-right sliding-window chain of width w: (steps, 2)
+    int32 rows (squarings, index), each squaring acc that many times and
+    then multiplying it by x^(2 index + 1) (index -1: no multiply). The
+    first row, (0, index), starts acc at x^(2 index + 1)."""
+    assert e >= 1 and 1 <= w <= 5
+    steps, zeros, i = [], 0, e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            zeros += 1
+            i -= 1
+            continue
+        j = max(i - w + 1, 0)
+        while not (e >> j) & 1:
+            j += 1
+        val = (e >> j) & ((1 << (i - j + 1)) - 1)
+        steps.append((zeros + i - j + 1 if steps else 0, val >> 1))
+        zeros, i = 0, j - 1
+    if zeros:
+        steps.append((zeros, -1))
+    return np.asarray(steps, dtype=np.int32)
+
+
+def schedule_products(sched: np.ndarray) -> tuple[int, int, int]:
+    """(squarings, multiplies, table products) of a schedule's chain: the
+    table x^3 .. x^(2 t - 1) costs one squaring (x^2) and t - 1 multiplies."""
+    t = int(sched[:, 1].max()) + 1
+    return int(sched[:, 0].sum()), int((sched[1:, 1] >= 0).sum()), (t if t > 1 else 0)
+
+
 @functools.cache
-def _bits(e: int, device: torch.device) -> torch.Tensor:
-    bits = [(e >> i) & 1 for i in reversed(range(e.bit_length() - 1))]
-    return torch.as_tensor(np.asarray(bits, dtype=np.int32), device=device)
+def _schedule(e: int, w: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """The schedule on the device, and its table size (no sync a launch)."""
+    sched = window_schedule(e, w)
+    return torch.as_tensor(sched, device=device), int(sched[:, 1].max()) + 1
 
 
 def pow_const_plain(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
@@ -49,9 +87,9 @@ def pow_const_rows(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     x = x.to(ffl.DTYPE).contiguous()
     kernels.require_cuda("pow_const", x)
     out = torch.empty_like(x)
-    bits = _bits(e, x.device)
+    sched, tsize = _schedule(e, WINDOW, x.device)
     rc = kernels.lib("pow_chain").mbt_pow_chain(
-        field_id(spec), x.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(),
+        field_id(spec), x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.shape[0], tsize,
         x.numel() // ffl.REP_LIMBS, kernels.stream(),
     )
     kernels.check(rc, "pow_const")

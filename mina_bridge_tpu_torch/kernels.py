@@ -1,12 +1,15 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each source in `csrc/` (pow_chain.cu, transcript.cu, points.cu, and
-probe.cu, a product-latency probe that no path calls; all include
-field.cuh, points.cu also points.cuh) is compiled by `nvcc` for sm_90a
-into a shared library with a plain C interface, loaded with ctypes.
+Each source in `csrc/` (pow_chain.cu, transcript.cu, points.cu; probe.cu,
+a product-latency probe, and k1_sweep.cu and k7_split.cu, K1's
+alternatives and K7 split into its parts for scripts/torch_kernel_sweep.py,
+which no path calls; all include field.cuh, some also pow_chain.cuh or
+points.cuh) is compiled by `nvcc` for sm_90a into a shared library with a
+plain C interface, loaded with ctypes.
 Builds land in `<repo>/build/kernels/`, named by a hash of the source
 and the headers, so a changed source is rebuilt and an unchanged one is
-reused. `build_all()` starts one `nvcc` per source at once.
+reused. `build_all()` starts one `nvcc` per source at once (all but the
+sweep's two, SWEEP_ONLY, unless asked).
 
 `launches` counts, per kernel, the launches its wrapper made; each
 wrapper adds one where it launches and nowhere else.
@@ -37,7 +40,7 @@ _L = ctypes.c_int64
 
 # source stem -> {C function: argtypes}
 SOURCES = {
-    "pow_chain": {"mbt_pow_chain": [_I, _V, _V, _V, _I, _L, _V]},
+    "pow_chain": {"mbt_pow_chain": [_I, _V, _V, _V, _I, _I, _L, _V]},
     "transcript": {"mbt_transcript": [_I, _V, _V, _V, _V, _V, _I, _I, _I, _V]},
     "points": {
         "mbt_padd": [_I, _V, _V, _V, _L, _V],
@@ -50,7 +53,10 @@ SOURCES = {
         "mbt_padd_select_scan": [_I, _V, _V, _V, _V, _L, _L, _V],
     },
     "probe": {"mbt_product_chain": [_I, _I, _V, _V, _I, _V]},
+    "k1_sweep": {"mbt_k1_sweep": [_I, _V, _V, _V, _I, _I, _L, _I, _I, _I, _V]},
+    "k7_split": {"mbt_k7_split": [_I, _I, _I, _V, _V, _V, _V, _V, _L, _I, _V]},
 }
+SWEEP_ONLY = ("k1_sweep", "k7_split")
 
 KERNELS = (
     "pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select",
@@ -86,7 +92,7 @@ def _target(stem: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(stems=tuple(SOURCES)) -> dict[str, pathlib.Path]:
+def build_all(stems=tuple(s for s in SOURCES if s not in SWEEP_ONLY)) -> dict[str, pathlib.Path]:
     """Compile every missing library, one nvcc process per source, all at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {s: _target(s) for s in stems}

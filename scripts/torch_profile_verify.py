@@ -42,7 +42,8 @@ sys.path.insert(0, str(ROOT))
 # csrc/*.cu, e.g. "void (anonymous namespace)::padd_kernel<0>(...)")
 GROUPS = {
     "transcript_kernel": "K2 transcript",
-    "pow_chain_kernel": "K1 pow chain",
+    "pow_group_kernel": "K1 pow chain",
+    "padd_mixed_select_kernel": "K7 padd_mixed_select",
     "padd_mixed_select2_scan_kernel": "K6 padd_mixed_select2 (scan)",
     "padd_select_scan_kernel": "K5 padd_select_scan (lane repair)",
     "padd_select_kernel": "K5 padd_select",

@@ -45,6 +45,29 @@ def test_pow_chain(dev, spec):
         assert torch.equal(ffl.canon(spec, got), ffl.canon(spec, chain_kernel.pow_const_plain(spec, inp, spec.p - 2)))
 
 
+def _exponents(p):
+    rng = np.random.default_rng(3)
+    e255 = (int.from_bytes(rng.bytes(32), "little") | (1 << 254)) & ((1 << 255) - 1)
+    gap = (int.from_bytes(rng.bytes(16), "little") << 140) | (1 << 139) | 12345  # 100+ zero bits
+    return [p - 2, 1 << 32, (1 << 40) + 1, e255, gap]
+
+
+@pytest.mark.parametrize("n", [1, 33, 160, 512, 4097])
+@pytest.mark.parametrize("spec", [FP, FQ], ids=["fp", "fq"])
+def test_pow_chain_window(dev, spec, n):
+    """K1's window chain at ragged sizes and the main path's 160 and 512
+    elements, at every exponent shape (long zero runs, a lone top bit, a
+    dense 255-bit e), on 0, 1, p - 1 and lazy rows; equal to Python ints."""
+    xs = _ints(spec.p, n, 20 + n)
+    x = ffl.from_ints(spec, xs, dev)
+    x = torch.where((torch.arange(n, device=dev) % 2 == 1)[:, None], ffl.mul(spec, x, ffl.ones(spec, (n,), dev)), x)
+    for e in _exponents(spec.p):
+        got = chain_kernel.pow_const_rows(spec, x, e)
+        if n <= 33:
+            assert ffl.to_ints(spec, got.cpu()) == [pow(v, e, spec.p) for v in xs]
+        assert torch.equal(ffl.canon(spec, got), ffl.canon(spec, chain_kernel.pow_const_plain(spec, x, e)))
+
+
 @pytest.mark.parametrize("B", [1, 8, 33])
 @pytest.mark.parametrize("name", ["fp", "fq"])
 def test_transcript(dev, name, B):
@@ -101,6 +124,20 @@ def test_point_kernels(dev, curve):
         a = ffl.canon(curve.base, got.permute(0, 2, 1))
         b = ffl.canon(curve.base, want.permute(0, 2, 1))
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4097, 20480])
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_padd_mixed_select(dev, curve, n):
+    """K7 at ragged sizes (a partial last block of 32 lanes) and the MSM's
+    20,480 lanes, with identity lanes in p and in q and both masks mixed."""
+    p = _rows(curve, n, 30, identity_every=7).to(dev)
+    q = _rows(curve, n, 31, identity_every=5, projective=False).to(dev)
+    keep = (torch.arange(n, device=dev) % 3 == 1).to(torch.int32)
+    q_inf = (q[2, 0] == 0).to(torch.int32)
+    want = ffl.canon(curve.base, pk.padd_mixed_select_plain(curve, p, q, keep, q_inf).permute(0, 2, 1))
+    got = pk.padd_mixed_select(curve, p, q, keep, q_inf)
+    assert torch.equal(ffl.canon(curve.base, got.permute(0, 2, 1)), want)
 
 
 @pytest.mark.parametrize("T", [1, 3])

@@ -159,8 +159,10 @@ def field_host_lib(tmp_path_factory):
     V = ctypes.c_void_p
     lib.mbt_host_binop.argtypes = [ctypes.c_int, ctypes.c_int, V, V, V, ctypes.c_int64]
     lib.mbt_host_binop.restype = ctypes.c_int
-    lib.mbt_host_pow.argtypes = [ctypes.c_int, V, V, V, ctypes.c_int, ctypes.c_int64]
-    lib.mbt_host_pow.restype = None
+    lib.mbt_host_pow.argtypes = [ctypes.c_int, V, V, V, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
+    lib.mbt_host_pow.restype = ctypes.c_int
+    lib.mbt_host_k7.argtypes = [ctypes.c_int, V, V, V, V, V, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    lib.mbt_host_k7.restype = ctypes.c_int
     lib.mbt_host_points.argtypes = [ctypes.c_int, ctypes.c_int, V, V, V, ctypes.c_int64]
     lib.mbt_host_points.restype = ctypes.c_int
     I64 = ctypes.c_int64
@@ -174,11 +176,11 @@ def field_host_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("fid,spec", [(0, FP), (1, FQ)], ids=IDS)
 def test_kernel_field_library_host_build(field_host_lib, fid, spec):
-    """mul / square / add / sub / x15 / the K1 ladder of field.cuh (host
+    """mul / square / add / sub / x15 / the K1 chain of field.cuh (host
     build) vs the plain torch ops, on canonical and on lazy REP inputs;
-    K2's mul32 and lazy MDS row also vs Python ints, on edge values; the
-    mixed add of K6 and the doubling of K4 (points.cuh on mul32) vs the
-    plain point formulas."""
+    K2's mul32, K1's sqr32 and lane-group products (ops 8-10) and the lazy
+    MDS row also vs Python ints, on edge values; the mixed add of K6 and the doubling of K4 (points.cuh on
+    mul32) vs the plain point formulas."""
     xs, ys = rand_elems(spec, 32, 4), rand_elems(spec, 32, 5)
     a = ffl.from_ints(spec, xs)
     b = ffl.from_ints(spec, ys)
@@ -199,9 +201,7 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
             assert (out < 8192).all()
             assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, fn(u, b)).numpy()), op
     e = spec.p - 2
-    bits = chain_kernel._bits(e, torch.device("cpu"))
-    out = torch.empty_like(a)
-    field_host_lib.mbt_host_pow(fid, a.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(), 32)
+    out = _host_pow(field_host_lib, fid, a, e, chain_kernel.WINDOW)
     assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, chain_kernel.pow_const_plain(spec, a, e)).numpy())
 
     # K2's product (op 5, the 32-bit-limb CIOS) and its lazy MDS row (op 6,
@@ -219,6 +219,8 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
         xs_, ys_ = ([limbs_to_int(row) % p for row in t.numpy()] for t in (u, v))
         for op, fn, want in (
             (5, lambda s, t: ffl.mul(spec, s, t), [x * y % p for x, y in zip(xs_, ys_)]),
+            (7, lambda s, t: ffl.square(spec, s), [x * x % p for x in xs_]),
+            *((op, lambda s, t: ffl.mul(spec, s, t), [x * y % p for x, y in zip(xs_, ys_)]) for op in (8, 9, 10)),
             (
                 6,
                 lambda s, t: ffl.add(spec, ffl.add(spec, ffl.mul(spec, s, t), ffl.square(spec, t)), ffl.square(spec, s)),
@@ -253,6 +255,84 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
         assert field_host_lib.mbt_host_points(fid, op, p_rows.data_ptr(), q.data_ptr(), out.data_ptr(), n) == 0
         assert (out < 8192).all()
         assert torch.equal(ffl.canon(spec, out.permute(0, 2, 1)), ffl.canon(spec, want.permute(0, 2, 1))), op
+
+
+def _host_pow(lib, fid, x, e, w):
+    sched = np.ascontiguousarray(chain_kernel.window_schedule(e, w))
+    out = torch.empty_like(x)
+    tsize = int(sched[:, 1].max()) + 1
+    assert lib.mbt_host_pow(fid, x.data_ptr(), out.data_ptr(), sched.ctypes.data, sched.shape[0], tsize,
+                            x.shape[0]) == 0
+    assert (out < 8192).all()
+    return out
+
+
+def _exponent(name, p):
+    rng = np.random.default_rng(9)
+    return {
+        "p-2": p - 2,
+        "2^32": 1 << 32,
+        "2^40+1": (1 << 40) + 1,
+        "e255": (int.from_bytes(rng.bytes(32), "little") | (1 << 254)) & ((1 << 255) - 1),
+        "zero-run": (int.from_bytes(rng.bytes(16), "little") << 140) | (1 << 139) | 777,
+    }[name]
+
+
+@pytest.mark.parametrize("ename", ["p-2", "2^32", "2^40+1", "e255", "zero-run"])
+@pytest.mark.parametrize("fid,spec", [(0, FP), (1, FQ)], ids=IDS)
+def test_pow_window_host_build(field_host_lib, fid, spec, ename):
+    """K1's window schedule (fields/chain_kernel.py) and chain (pow_chain.cuh
+    on the 2-lane product, its lanes in turn; host build) at every width it
+    takes: the schedule spells e, and x^e equals Python's pow on 0, 1,
+    p - 1, random and lazy rows (and pow_const_plain at p - 2 and the zero
+    run)."""
+    p = spec.p
+    e = _exponent(ename, p)
+    for w in (1, 3, 4, 5):
+        acc = None
+        for nsq, idx in chain_kernel.window_schedule(e, w).tolist():
+            assert idx < 1 << (w - 1) and (acc is None) == (nsq == 0)
+            acc = 2 * idx + 1 if acc is None else (acc << nsq) + (2 * idx + 1 if idx >= 0 else 0)
+        assert acc == e, w
+    if ename == "p-2":
+        assert chain_kernel.schedule_products(chain_kernel.window_schedule(e, 4)) == (254, 27, 8)
+    xs = rand_elems(spec, 24, 10)
+    x = ffl.from_ints(spec, xs)
+    x = torch.cat([x[:16], ffl.mul(spec, x[16:], ffl.add(spec, ffl.ones(spec, (8,)), ffl.zeros(spec, (8,))))])
+    want = [pow(v, e, p) for v in xs]
+    for w in (3, 4, 5):
+        assert canon_ints(spec, _host_pow(field_host_lib, fid, x.contiguous(), e, w)) == want, w
+    if ename in ("p-2", "zero-run"):
+        assert canon_ints(spec, chain_kernel.pow_const_plain(spec, x, e)) == want
+
+
+@pytest.mark.parametrize("fid", [0, 1], ids=IDS)
+def test_k7_host_build(field_host_lib, fid):
+    """K7's phased program (points.cuh k7, host build: blocks of lanes, each
+    phase's tasks in the kernel's order and reversed) equals
+    padd_mixed_select_plain: identity lanes in p and in q (Z row 0), keep_q
+    lanes, lanes where both masks are set, and lazy limbs in p."""
+    curve = (PALLAS, VESTA)[fid]
+    spec = curve.base
+    n = 30
+    p_rows = _point_rows(curve, n, 20 + fid, 4)
+    p_rows[0] = ffl.mul(spec, p_rows[0].T, ffl.ones(spec, (n,))).T  # lazy X limbs
+    rng = random.Random(fid)
+    aff = [hmul(curve, rng.randrange(1, 1 << 64), curve.generator) for _ in range(n)]
+    inf = [i % 5 == 2 for i in range(n)]
+    cols = [[0 if f else a[0] for a, f in zip(aff, inf)], [1 if f else a[1] for a, f in zip(aff, inf)],
+            [0 if f else 1 for f in inf]]
+    q_rows = torch.stack([ffl.from_ints(spec, col) for col in cols]).permute(0, 2, 1).contiguous()
+    keep = torch.tensor([i % 3 == 1 for i in range(n)], dtype=torch.int32)
+    q_inf = torch.tensor(inf, dtype=torch.int32)
+    p_rows = p_rows.contiguous()
+    want = ffl.canon(spec, pk.padd_mixed_select_plain(curve, p_rows, q_rows, keep, q_inf).permute(0, 2, 1))
+    for lpb, reverse in ((8, 0), (8, 1), (32, 0)):  # a partial last block; the phases' tasks in either order
+        out = torch.empty_like(p_rows)
+        assert field_host_lib.mbt_host_k7(fid, p_rows.data_ptr(), q_rows.data_ptr(), keep.data_ptr(),
+                                          q_inf.data_ptr(), out.data_ptr(), n, lpb, reverse) == 0
+        assert (out < 8192).all()
+        assert torch.equal(ffl.canon(spec, out.permute(0, 2, 1)), want), (lpb, reverse)
 
 
 def _point_rows(curve, n, seed, identity_every):
