@@ -33,7 +33,19 @@ Phases (any failure exits non-zero and prints no result):
   6. the main path: launch counters set to 0, one batched verify (must
      accept, every kernel of the path launched), then a tampered copy
      (must reject);
-  7. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+  7. Pickles tips (fixtures/pickles_2e17_s2e18_b8.json.gz: wrap 2^17 on
+     Pallas, 2 chunks, 2 carried accumulators; step 2^18 on Vesta, 4
+     chunks; B = 8), loaded with both verifier indexes before phase 5, so
+     that the inputs each kernel receives in one recorded tips verify (the
+     Vesta MSM, the deferred digest's transcript, K1 in both fields) join
+     phase 5's checks. After phase 6: launch counters set to 0, one honest
+     tips verify (must accept, every kernel of the path launched), timed as
+     the median of 3; four tampers, each its own call (must reject); the
+     legacy path without step proofs (accepts the honest and the forged
+     step: the reference's documented gap); the serving bisection over the
+     8 tips with tip 5's step forged (exactly tip 5 rejected); a
+     `{"pickles": {...}}` line;
+  8. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -89,6 +101,8 @@ OFF_PATH = {
     "padd_mixed_select": "none (no caller in the JAX package)",
     "padd_select": "none (the verify's lane repair is padd_select_scan)",
 }
+TIPS = (17, 18, 8)  # the Pickles fixture: wrap log2 n, step log2 n, tips
+TIPS_FORGED = 5  # the tip whose step proof the serving check forges
 
 
 def log(*a):
@@ -458,13 +472,14 @@ def fresh(args) -> tuple:
     return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
-def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> list[dict]:
-    """Each kernel vs its plain version on every recorded input and the
-    extra inputs; each kernel timed at every recorded shape, the plain
-    version at the one with the most lanes. The rows of K2 and the chains
-    (K4, the K6 scan, K3's weighting, K5's repair) also get their
-    critical-path floors from the probe; the K6 row its time at the MSM's
-    input."""
+def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_rec: Recorder | None = None) -> list[dict]:
+    """Each kernel vs its plain version on every recorded input (the
+    Kimchi verify's and, with `tips_rec`, the tips verify's) and the extra
+    inputs; each kernel timed at every recorded shape, the plain version
+    at the Kimchi verify's shape with the most lanes. The rows of K2 and
+    the chains (K4, the K6 scan, K3's weighting, K5's repair) also get
+    their critical-path floors from the probe; the K6 row its time at the
+    MSM's input."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -489,7 +504,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
         timed = rec.inputs[name]
         if not timed:
             raise RuntimeError(f"{name}: the verify never called this kernel")
-        sets = [*timed.values(), *extra.get(name, [])]
+        tips_timed = tips_rec.inputs.get(name, {}) if tips_rec else {}
+        sets = [*timed.values(), *tips_timed.values(), *extra.get(name, [])]
         err = 0
         for args in sets:
             a = canon_out(name, args[0], kern(*fresh(args)))
@@ -499,7 +515,9 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
         if err != 0:
             raise RuntimeError(f"{name}: kernel and plain version disagree (max abs limb error {err})")
         ms_at = {key: cuda_ms(lambda a=args: kern(*a), 20) for key, args in timed.items()}
+        tips_ms_at = {key: cuda_ms(lambda a=args: kern(*a), 20) for key, args in tips_timed.items()}
         calls = rec.calls.get(name, {})
+        tips_calls = tips_rec.calls.get(name, {}) if tips_rec else {}
         key = max(timed, key=lambda k: lanes(name, k))
         args = timed[key]
         ms = ms_at[key]
@@ -526,6 +544,10 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
             "shapes_checked": len(sets),
             "ms_by_shape": [[[list(s) for s in k if isinstance(s, tuple)], calls.get(k, 0), t] for k, t in ms_at.items()],
             "main_path_calls": sum(calls.values()),
+            "launches_per_tips_verify": None,
+            "device_ms_per_tips_verify": sum(tips_calls.get(k, 0) * t for k, t in tips_ms_at.items()),
+            "tips_ms_by_shape": [[[list(s) for s in k if isinstance(s, tuple)], tips_calls.get(k, 0), t]
+                                 for k, t in tips_ms_at.items()],
         }
         if name == "transcript_blocks":
             # dependent products a block: 3 in the sbox, 1 for the MDS row
@@ -563,7 +585,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None) -> lis
             row["ms_msm_2e16"] = cuda_ms(lambda: kern(*msm_scan), 20)
             row["shape_msm_2e16"] = [list(t.shape) for t in msm_scan[1:]]
         rows.append(row)
-        log(f"{name}: exact on {len(sets)} input sets; {ms:.4f} ms (plain {plain_ms:.3f} ms) at {key}")
+        log(f"{name}: exact on {len(sets)} input sets ({len(tips_timed)} from the tips verify); "
+            f"{ms:.4f} ms (plain {plain_ms:.3f} ms) at {key}")
     return rows
 
 
@@ -604,6 +627,185 @@ def probe_latency(dev) -> dict:
     return out
 
 
+class MsmSizes:
+    """Records the point count and curve of every pmsm.msm call (the
+    verify's one MSM per proof kind)."""
+
+    def __enter__(self):
+        from mina_bridge_tpu_torch.ops import pmsm
+
+        self.sizes, self.orig = [], pmsm.msm
+
+        def wrapped(c, scalars, points, *a, **kw):
+            self.sizes.append((c.name, int(scalars.shape[0])))
+            return self.orig(c, scalars, points, *a, **kw)
+
+        pmsm.msm = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from mina_bridge_tpu_torch.ops import pmsm
+
+        pmsm.msm = self.orig
+
+
+def bumped(t, idx: tuple, field):
+    """A copy of limb tensor t with the element at idx replaced by its value + 1 mod p."""
+    import torch
+
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs, limbs_to_int
+
+    out = t.clone()
+    v = (limbs_to_int(out[idx].cpu().numpy()) + 1) % field.p
+    out[idx] = torch.as_tensor(int_to_limbs(v, NLIMBS), device=t.device)
+    return out
+
+
+def tips_inputs(seed: int, dev) -> dict:
+    """Phase 7's inputs: the tips fixture, both verifier indexes through
+    the port's loaders (the Vesta SRS through load_srs("vesta")), seeded
+    weights; then one honest tips verify with every kernel's inputs and the
+    MSM sizes recorded."""
+    import torch
+
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    t0 = time.time()
+    block_log_n, step_log_n, tips, _, _ = pfx.load_tips(pfx.fixture_path(*TIPS))
+    dindex = pfx.load_wrap_dindex(*TIPS, device=str(dev))
+    step_dindex = pfx.load_step_dindex(*TIPS, device=str(dev))
+    dtips = pv.DeviceTips.from_host(tips, dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    B = len(tips)
+    if (block_log_n, step_log_n, B) != TIPS or dtips.step is None:
+        raise RuntimeError(f"unexpected tips fixture: {(block_log_n, step_log_n, B)}")
+    rng = np.random.default_rng(seed + 1)
+    rw = torch.as_tensor(
+        np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)] for _ in range(B)]),
+        device=dev,
+    )
+    log(f"tips fixture (wrap 2^{block_log_n} nc {dindex.nc}, step 2^{step_log_n} nc {step_dindex.nc}, B = {B}) "
+        f"and both indexes loaded in {load_s:.1f} s")
+    t0 = time.time()
+    with Recorder() as rec, MsmSizes() as sizes:
+        ok = pv.batch_verify_tips(dtips, rw, dindex, step_dindex)
+    torch.cuda.synchronize()
+    if ok is not True:
+        raise RuntimeError("the honest tips were rejected")
+    log(f"first tips verify {time.time() - t0:.1f} s; MSMs {sizes.sizes}")
+    return {"dtips": dtips, "rw": rw, "dindex": dindex, "step_dindex": step_dindex, "rec": rec,
+            "msm_sizes": sizes.sizes, "load_s": load_s, "first_verify_s": time.time() - t0}
+
+
+def tips_phase(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 7 after phase 6: counted honest verify and its timing, the four
+    tampers, the legacy path, the serving bisection. Raises on any wrong
+    verdict; fills each row's launches per tips verify."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.bridge import verifier_service as vs
+    from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    dtips, rw, dindex, step_dindex = ctx["dtips"], ctx["rw"], ctx["dindex"], ctx["step_dindex"]
+    B = rw.shape[0]
+
+    def verify(t):
+        ok = pv.batch_verify_tips(t, rw, dindex, step_dindex)
+        torch.cuda.synchronize()
+        return ok
+
+    kernels.reset_launches()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ok = verify(dtips)
+        times.append(time.time() - t0)
+        if i == 0:
+            counts = dict(kernels.launches)
+        if ok is not True:
+            raise RuntimeError("the honest tips were rejected")
+    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
+    if missing:
+        raise RuntimeError(f"kernels never launched in the tips verify: {missing}")
+    for row in rows:
+        row["launches_per_tips_verify"] = counts[row["name"]]
+
+    def with_step(t, **kw):
+        return dataclasses.replace(t, step=dataclasses.replace(t.step, **kw))
+
+    forged = with_step(dtips, evals=bumped(dtips.step.evals, (0, 3, 0), VESTA.scalar))
+    tampers = {
+        "acc_prechals[1, 0] + 1": dataclasses.replace(dtips, acc_prechals=bumped(dtips.acc_prechals, (1, 0), PALLAS.scalar)),
+        "wrap prev_chals[0, 0, 0] + 1": dataclasses.replace(
+            dtips, wrap=dataclasses.replace(dtips.wrap, prev_chals=bumped(dtips.wrap.prev_chals, (0, 0, 0), PALLAS.scalar))
+        ),
+        "step evals[0, 3, 0] + 1 (forged step)": forged,
+        "steps and accumulators swapped": dataclasses.replace(
+            dtips.map(lambda x: x.flip(0)), wrap=dtips.wrap
+        ),
+    }
+    rejected = {}
+    for label, t in tampers.items():
+        t0 = time.time()
+        ok = verify(t)
+        if ok is not False:
+            raise RuntimeError(f"tamper accepted: {label}")
+        rejected[label] = time.time() - t0
+    legacy = {"honest": verify(dataclasses.replace(dtips, step=None)),
+              "forged step": verify(dataclasses.replace(forged, step=None))}
+    if legacy != {"honest": True, "forged step": True}:
+        raise RuntimeError(f"the legacy path gave {legacy}; the reference accepts both")
+
+    forged_one = with_step(dtips, evals=bumped(dtips.step.evals, (TIPS_FORGED, 3, 0), VESTA.scalar))
+    calls = []
+    orig = pv.batch_verify_tips
+
+    def counted(*a):
+        calls.append(a[1].shape[0])
+        return orig(*a)
+
+    pv.batch_verify_tips = counted
+    try:
+        t0 = time.time()
+        verdicts = vs._tip_verdicts(range(B), forged_one, rw, dindex, step_dindex)
+        serve_s = time.time() - t0
+    finally:
+        pv.batch_verify_tips = orig
+    if verdicts != {i: i != TIPS_FORGED for i in range(B)}:
+        raise RuntimeError(f"_tip_verdicts gave {verdicts}")
+    ms = sorted(times)[1] * 1e3
+    log(f"tips verify B={B}: {ms:.1f} ms per batch ({B / ms * 1e3:.2f} tips/s); tampers rejected; "
+        f"legacy accepts the forged step; serving isolated tip {TIPS_FORGED} in {len(calls)} calls")
+    log("launches per tips verify:", counts)
+    return {
+        "fixture": str(pfx.fixture_path(*TIPS).relative_to(ROOT)),
+        "B": B,
+        "wrap": {"log_n": dindex.log_n, "nc": dindex.nc, "npub": dindex.npub, "R": dtips.wrap.prev_chals.shape[1],
+                 "k": dtips.wrap.lr.shape[1]},
+        "step": {"log_n": step_dindex.log_n, "nc": step_dindex.nc, "npub": step_dindex.npub, "k": dtips.step.lr.shape[1]},
+        "msm_points": ctx["msm_sizes"],
+        "load_s": ctx["load_s"],
+        "first_verify_s": ctx["first_verify_s"],
+        "honest": True,
+        "ms_per_batch": ms,
+        "tips_per_s": B / ms * 1e3,
+        "runs_s": times,
+        "tampers_rejected": rejected,
+        "legacy_accepts": legacy,
+        "legacy_note": "without step proofs the forged step is accepted: the reference's documented gap",
+        "serving": {"forged_tip": TIPS_FORGED, "verdicts": {str(k): v for k, v in sorted(verdicts.items())},
+                    "batched_calls": len(calls), "call_sizes": calls, "s": serve_s},
+        "launches": counts,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -627,6 +829,7 @@ def main() -> int:
     from mina_bridge_tpu_torch.ops import msm as plain_msm
     from mina_bridge_tpu_torch.ops import pmsm
 
+    t_start = time.time()
     OUT.mkdir(exist_ok=True)
     dev = device()
     card = nvidia_smi()
@@ -674,7 +877,9 @@ def main() -> int:
     scalars = torch.as_tensor(ffl.ints_to_limbs(scal), device=dev)
     with Recorder(only={"padd_mixed_select2", "padd_weight_sum", "padd_fixup", "padd_select_scan"}) as msm_rec:
         got = cv.to_affine_ints(PALLAS, pmsm.msm(PALLAS, scalars, points))
-    want = cv.to_affine_ints(PALLAS, plain_msm.msm(PALLAS, scalars, points))
+    if n <= plain_msm.SMALL_MSM_MAX:
+        raise RuntimeError("the 2^16 comparison must hold pmsm against the plain windowed MSM")
+    want = cv.to_affine_ints(PALLAS, plain_msm.msm_windowed(PALLAS, scalars, points))
     if got != want or got[0] is None:
         raise RuntimeError("pmsm and the plain MSM disagree at 2^16")
     msm_ms = cuda_ms(lambda: pmsm.msm(PALLAS, scalars, points), 3)
@@ -683,9 +888,12 @@ def main() -> int:
                      "points_per_s": n / msm_ms * 1e3}
     log(f"MSM 2^16: pmsm {msm_ms:.1f} ms ({n / msm_ms * 1e3:.0f} points/s); plain {plain_msm_ms:.1f} ms; equal")
 
+    # ---- 7, first part: the tips, both indexes, one recorded tips verify ----
+    tips_ctx = tips_inputs(args.seed, dev)
+
     # ---- 5. kernels vs plain versions ----
     msm_scan = next(iter(msm_rec.inputs["padd_mixed_select2"].values()))
-    rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan)
+    rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan, tips_ctx["rec"])
 
     # ---- 6. the main path, counted ----
     kernels.reset_launches()
@@ -715,8 +923,13 @@ def main() -> int:
     log(f"Kimchi verify n=2^16 B={B}: {ms:.1f} ms per batch ({B / ms * 1e3:.2f} proofs/s); tamper rejected")
     log("launches per verify:", counts)
 
+    # ---- 7. Pickles tips, counted ----
+    report["pickles"] = tips = tips_phase(tips_ctx, rows)
+
     report["kernels"] = rows
+    report["total_s"] = time.time() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"pickles": tips}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,1 @@
+"""See the package docstring; each module names its JAX counterpart."""

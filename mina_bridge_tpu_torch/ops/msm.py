@@ -1,16 +1,22 @@
 """Multi-scalar multiplication in plain torch point ops (the CPU path).
 
-Counterpart of mina_bridge_tpu/ops/msm.py: below SMALL_MSM_MAX points a
-per-lane double-and-add plus a prefix-sum reduce (`_msm_small`); above
-it a Pippenger over the scalars' 13-bit limbs as windows, each window
+Counterpart of mina_bridge_tpu/ops/msm.py: up to SMALL_MSM_MAX points
+each 4-bit window's sum of table lookups, added up by a tree over the
+points, then a Horner walk over the windows (`_msm_small`); above it a
+Pippenger over the scalars' 13-bit limbs as windows, each window
 sorted by digit and summed with a segmented Hillis-Steele scan whose
 combine is the complete point add (all 20 windows in one batch), then a
 suffix-sum bucket weighting and a 13-doubling Horner walk.
 
-Two changes of schedule, same sums: below SMALL_MSM_MAX the lanes run
-4-bit fixed windows instead of the reference's bit-by-bit ladder (a
-third of the point adds), and the bucket weighting runs over the buckets
-that occur instead of all 2^13 (`_bucket_weighting`).
+Three changes of schedule, same sums: the small path sums 4-bit windows
+of table lookups (79 point adds a point, its 260 doublings on one lane)
+where the reference runs a bit-by-bit double-and-add per point (260
+doublings and up to 260 adds a point) and a prefix reduce; the bucket
+weighting runs over the buckets that occur instead of all 2^13
+(`_bucket_weighting`); and SMALL_MSM_MAX is 4,096 (the reference's is
+384). At 4,096 points the small path took 15.9 s against the windowed
+path's 159.6 s, on one thread of an Intel Xeon (4.3 s against 43.8 s at
+1,300 points; scripts/torch_cpu_msm.py, PERF.md §6).
 
 This is the path the port takes on the CPU (and the plain version that
 `ops/pmsm.py`, the card's path, is checked against).
@@ -26,9 +32,9 @@ from ..curves.host import CurveSpec
 from ..fields import ffl
 from ..fields.params import LIMB_BITS, NLIMBS
 
-__all__ = ["msm", "SMALL_MSM_MAX"]
+__all__ = ["msm", "msm_windowed", "SMALL_MSM_MAX"]
 
-SMALL_MSM_MAX = 384
+SMALL_MSM_MAX = 4096
 _WIN = 4  # window bits of the small-N path (divides 260)
 
 
@@ -67,25 +73,35 @@ def _prefix_point_scan(c: CurveSpec, pts: torch.Tensor, reverse: bool = False) -
     return torch.flip(x, dims=(-3,)) if reverse else x
 
 
+def _tree_sum(c: CurveSpec, pts: torch.Tensor) -> torch.Tensor:
+    """Sum along axis 1 of (W, n, 3, L) by pairwise adds, an identity
+    point padding odd levels. Returns (W, 3, L)."""
+    while pts.shape[1] > 1:
+        if pts.shape[1] % 2:
+            pts = torch.cat([pts, cv.identity(c, (pts.shape[0], 1), pts.device)], dim=1)
+        pts = cv.add(c, pts[:, 0::2], pts[:, 1::2])
+    return pts[:, 0]
+
+
 def _msm_small(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Per-lane fixed-window (4-bit) double-and-add, then a prefix reduce
-    over the lanes (small N). The reference runs 1-bit double-and-add;
-    4-bit windows take 78 adds per lane instead of 260."""
+    """Each point's multiples 0..15 (14 adds), every 4-bit window's sum of
+    the multiples its digits pick (a tree over the points, all 65 windows
+    at once), then a Horner walk over the windows on one lane."""
     n = scalars.shape[0]
     sh = torch.arange(LIMB_BITS, device=scalars.device)
     bits = ((scalars.unsqueeze(-1) >> sh) & 1).reshape(n, -1)  # (N, 260) lsb-first
-    nib = (bits.reshape(n, -1, _WIN) << torch.arange(_WIN, device=scalars.device)).sum(-1)
+    nib = (bits.reshape(n, -1, _WIN) << torch.arange(_WIN, device=scalars.device)).sum(-1)  # (N, 65)
     table = [cv.identity(c, (n,), points.device), points]
     for _ in range(2, 1 << _WIN):
         table.append(cv.add(c, table[-1], points))
     table = torch.stack(table)  # (16, N, 3, L)
-    lanes = torch.arange(n, device=points.device)
-    acc = table[nib[:, -1], lanes]
-    for w in range(nib.shape[1] - 2, -1, -1):
+    sums = _tree_sum(c, table[nib.T, torch.arange(n, device=points.device)])  # (65, 3, L)
+    acc = sums[-1]
+    for w in range(sums.shape[0] - 2, -1, -1):
         for _ in range(_WIN):
             acc = cv.double(c, acc)
-        acc = cv.add(c, acc, table[nib[:, w], lanes])
-    return _prefix_point_scan(c, acc)[-1]
+        acc = cv.add(c, acc, sums[w])
+    return acc
 
 
 def _bucket_weighting(c: CurveSpec, prefix, dig_s, seg_end) -> torch.Tensor:
@@ -112,13 +128,21 @@ def _bucket_weighting(c: CurveSpec, prefix, dig_s, seg_end) -> torch.Tensor:
 
 
 def msm(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """sum_i scalars[i] * points[i].
+    """sum_i scalars[i] * points[i]: `_msm_small` up to SMALL_MSM_MAX
+    points, `msm_windowed` above.
 
     scalars: (N, 20) canonical limbs of the scalar field; points:
     (N, 3, 22) projective REP. Returns one projective point (3, 22)."""
     scalars = scalars.to(ffl.DTYPE)
     if scalars.shape[0] <= SMALL_MSM_MAX:
         return _msm_small(c, scalars, points)
+    return msm_windowed(c, scalars, points)
+
+
+def msm_windowed(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """The windowed Pippenger over the scalars' 13-bit limbs; arguments and
+    result as `msm`."""
+    scalars = scalars.to(ffl.DTYPE)
     # every window at once: sort each window's digits, scan its runs
     digits = scalars.T  # (W, N)
     order = torch.argsort(digits, dim=1, stable=True)

@@ -2,9 +2,15 @@
 """Where the PyTorch/CUDA port's batched Kimchi verify spends its time.
 
     python3 scripts/torch_profile_verify.py [--batch 32] [--reps 5]
+    python3 scripts/torch_profile_verify.py --pickles [--batch 8]
 
 Loads the committed fixture (n = 2^16), builds the verifier index on the
-card and runs one warm-up verify, then measures:
+card and runs one warm-up verify, then measures the items below. With
+--pickles the verify is the Pickles tips verify instead
+(pickles/verifier.py::batch_verify_tips on
+fixtures/pickles_2e17_s2e18_b<batch>.json.gz, both indexes from the
+fixture; `batch` 2 or 8), and the stage split also times the host's
+public-commitment hints:
   * `reps` verifies on the host clock (each ends in a synchronize):
     min / median / max ms per batch;
   * a stage split on the host clock: the Poseidon transcripts (K2), the
@@ -20,8 +26,9 @@ MSM's chunks per window), the 2^16-point MSM with seeded scalars and the
 verify (host clock, each run ends in a synchronize; median of `reps`),
 and checks that every G gives the same MSM point; the profile then runs at
 the package's default G.
-Prints one JSON line and writes chiprun_out/profile_verify.json. Needs one
-CUDA card.
+Prints one JSON line and writes it to profile_verify.json
+(profile_pickles.json with --pickles) in the repo's output directory.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -76,10 +83,11 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
 class StageTimer:
     """Host-clock time of selected calls, each between synchronizes."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, pickles: bool = False):
         from mina_bridge_tpu_torch.commitment import ipa
         from mina_bridge_tpu_torch.fields import chain_kernel
         from mina_bridge_tpu_torch.hash import poseidon
+        from mina_bridge_tpu_torch.pickles import verifier as pv
 
         self.torch = torch
         self.sites = [
@@ -87,6 +95,8 @@ class StageTimer:
             (chain_kernel, "pow_const_rows", "inversions (K1)"),
             (ipa, "_msm_impl", None),
         ]
+        if pickles:
+            self.sites.append((pv, "_host_hint", "public-commitment hints (host)"))
         self.ms: dict[str, float] = {}
         self.orig = {}
 
@@ -125,11 +135,14 @@ class StageTimer:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None, help="proofs (32) or, with --pickles, tips (8) per verify")
+    ap.add_argument("--pickles", action="store_true", help="profile the Pickles tips verify")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--sweep-g", default="", help="comma-separated chunk counts G to time the MSM and verify at")
     args = ap.parse_args()
+    if args.sweep_g and args.pickles:
+        ap.error("--sweep-g times the Kimchi verify; it does not combine with --pickles")
 
     import torch
 
@@ -149,19 +162,41 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     srs = load_srs("pallas")
-    index, proofs = bf.load_fixture(bf.fixture_path(16, args.batch))
-    dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
-    dproofs = kv.DeviceProofs.from_host(proofs, dev)
-    B = len(proofs)
     rng = np.random.default_rng(args.seed)
-    rw = torch.as_tensor(
-        np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(2)] for _ in range(B)]),
-        device=dev,
-    )
-    hint = kv.host_public_commitments(dindex, [p.public for p in proofs])
+
+    def weights(B, n):
+        return torch.as_tensor(
+            np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(n)] for _ in range(B)]),
+            device=dev,
+        )
+
+    if args.pickles:
+        from mina_bridge_tpu_torch.pickles import fixtures as pfx
+        from mina_bridge_tpu_torch.pickles import verifier as pv
+
+        shape = (17, 18, args.batch or 8)
+        _, _, tips, _, _ = pfx.load_tips(pfx.fixture_path(*shape))
+        dindex = pfx.load_wrap_dindex(*shape, device=str(dev))
+        step_dindex = pfx.load_step_dindex(*shape, device=str(dev))
+        dtips = pv.DeviceTips.from_host(tips, dev)
+        B = len(tips)
+        rw = weights(B, 5)
+
+        def verify():
+            return pv.batch_verify_tips(dtips, rw, dindex, step_dindex)
+    else:
+        index, proofs = bf.load_fixture(bf.fixture_path(16, args.batch or 32))
+        dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
+        dproofs = kv.DeviceProofs.from_host(proofs, dev)
+        B = len(proofs)
+        rw = weights(B, 2)
+        hint = kv.host_public_commitments(dindex, [p.public for p in proofs])
+
+        def verify():
+            return kv.verify(dindex, dproofs, rw, pub_comm_hint=hint)
 
     def run():
-        ok = kv.verify(dindex, dproofs, rw, pub_comm_hint=hint)
+        ok = verify()
         torch.cuda.synchronize()
         if ok is not True:
             raise RuntimeError("the honest batch was rejected")
@@ -205,7 +240,7 @@ def main() -> int:
 
     _, times = median_ms(run)
 
-    with StageTimer(torch) as st:
+    with StageTimer(torch, args.pickles) as st:
         t0 = time.perf_counter()
         run()
         staged_ms = (time.perf_counter() - t0) * 1e3
@@ -235,11 +270,12 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:15]
     result = {
         "card": card,
+        "verify": "pickles tips (wrap 2^17, step 2^18)" if args.pickles else "kimchi 2^16",
         "batch": B,
         "G": pmsm.G_DEFAULT,
         "g_sweep": sweep,
         "verify_ms": {"min": min(times), "median": float(np.median(times)), "max": max(times), "runs": times},
-        "proofs_per_s_median": B / float(np.median(times)) * 1e3,
+        "proofs_per_s_median": B / float(np.median(times)) * 1e3,  # tips/s with --pickles
         "stages_ms": stages,
         "staged_verify_ms": staged_ms,
         "profiled_wall_ms": wall_ms,
@@ -251,7 +287,7 @@ def main() -> int:
     }
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_verify.json").write_text(json.dumps(result, indent=1))
+    (out / ("profile_pickles.json" if args.pickles else "profile_verify.json")).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

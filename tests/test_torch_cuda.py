@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K7, and the MSM's one-launch phases of K3
-and K5) against their plain PyTorch versions on the card. Exact: equal
-canonical limbs. Imports only the port, so it runs
+and K5) against their plain PyTorch versions on the card, and the Pickles
+tips verify on the committed b2 fixture. Exact: equal canonical limbs.
+Imports only the port, so it runs
 where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -217,3 +218,28 @@ def test_lane_scan(dev, curve, G):
     assert _same(curve, pk.padd_select_scan(curve, x, flags), pk.padd_select_scan_plain(curve, x, flags))
     with pytest.raises(ValueError):  # 3 G lanes: no power of two
         pk.padd_select_scan(curve, x.repeat(1, 1, 1, 3), flags.repeat(1, 3))
+
+
+def test_pickles_tips(dev):
+    """The Pickles tips verify on the committed b2 fixture (wrap 2^17, step
+    2^18, both indexes from the fixture): the honest tips are accepted, a
+    forged step evaluation is rejected."""
+    import dataclasses
+
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs, limbs_to_int
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    _, _, tips, _, _ = pfx.load_tips(pfx.fixture_path(17, 18, 2))
+    dindex = pfx.load_wrap_dindex(17, 18, 2, device="cuda")
+    step_dindex = pfx.load_step_dindex(17, 18, 2, device="cuda")
+    assert (dindex.nc, step_dindex.nc) == (2, 4)
+    dtips = pv.DeviceTips.from_host(tips, dev)
+    rng = np.random.default_rng(5)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int(rng.integers(1, 1 << 62)), NLIMBS) for _ in range(5)] for _ in range(2)]), device=dev)
+    assert pv.batch_verify_tips(dtips, rw, dindex, step_dindex) is True
+    evals = dtips.step.evals.clone()
+    e = (limbs_to_int(evals[0, 3, 0].cpu().numpy()) + 1) % VESTA.scalar.p
+    evals[0, 3, 0] = torch.as_tensor(int_to_limbs(e, NLIMBS), device=dev)
+    forged = dataclasses.replace(dtips, step=dataclasses.replace(dtips.step, evals=evals))
+    assert pv.batch_verify_tips(forged, rw, dindex, step_dindex) is False

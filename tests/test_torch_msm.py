@@ -1,5 +1,5 @@
 """The port's MSMs against the host MSM oracle of the JAX package: the
-plain ops/msm (per-lane path and windowed Pippenger) and ops/pmsm, the
+plain ops/msm (small path and windowed Pippenger) and ops/pmsm, the
 card's algorithm, here on the plain point ops; pmsm's bucket weighting
 (K3) against the host oracle and its lane fix-up (K3) against the
 gather-add-select path it replaced. Exact: equal affine points or equal
@@ -39,15 +39,17 @@ def _host_msm(pts, ks):
     return jhc.msm(jhc.PALLAS, [k for k, p in zip(ks, pts) if p], [p for p in pts if p])
 
 
-@pytest.mark.parametrize("n", [32, 400], ids=["small", "windowed"])
-def test_msm_matches_host(n):
-    """ops/msm: the per-lane path below SMALL_MSM_MAX and the windowed
-    Pippenger above it."""
-    assert (n > msm.SMALL_MSM_MAX) == (n == 400)
+@pytest.mark.parametrize("n", [32, 400])
+@pytest.mark.parametrize("path", ["_msm_small", "msm_windowed"])
+def test_msm_matches_host(path, n):
+    """ops/msm: the small path (`msm.msm` up to SMALL_MSM_MAX: 4-bit windows
+    of table lookups summed by a tree) and the windowed Pippenger (above
+    it), each called by name at both sizes."""
+    assert n <= msm.SMALL_MSM_MAX
     rng = random.Random(n)
     pts, ks = _msm_case(rng, n, distinct=24)
     pts[3] = None
-    out = msm.msm(PALLAS, torch.as_tensor(ffl.ints_to_limbs(ks)), cv.from_affine_ints(PALLAS, pts))
+    out = getattr(msm, path)(PALLAS, torch.as_tensor(ffl.ints_to_limbs(ks)), cv.from_affine_ints(PALLAS, pts))
     assert cv.to_affine_ints(PALLAS, out)[0] == _host_msm(pts, ks)
 
 
@@ -73,8 +75,8 @@ def _host_buckets(pts, ks):
 @pytest.mark.parametrize("G", [16, pmsm.G_DEFAULT], ids=["G16", "default"])
 def test_pmsm_matches_host(G):
     """ops/pmsm on the plain point ops: G = 16 forces many chunks (the
-    Blelloch lane repair, segments across lanes; N = 390, above
-    SMALL_MSM_MAX, is padded to 400), and the card's default G (capped at
+    Blelloch lane repair, segments across lanes; N = 390 is padded to
+    400), and the card's default G (capped at
     the next power of two, 512: one position per lane); identity points, a
     zero scalar, p - 1, and clustered digits. At G = 16 the whole MSM equals
     the host MSM. The phase after the bucket sums does not depend on G, so
