@@ -45,7 +45,29 @@ Phases (any failure exits non-zero and prints no result):
      step: the reference's documented gap); the serving bisection over the
      8 tips with tip 5's step forged (exactly tip 5 rejected); a
      `{"pickles": {...}}` line;
-  8. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+  8. the verifier service (bridge/aligned.py::CudaVerifierService), its
+     inputs made before phase 5 so that these inputs of two recorded calls
+     join phase 5's checks: K2's in one accounts call; in one states call,
+     K2's for the hashing (the toy tips' own transcripts are phase 7's
+     kind) and every other kernel's. Proof-of-Account: 1,024 accounts from
+     --seed (a coverage mix: every second one a zkApp), each on a seeded
+     depth-35 path, whose ledger hashes and encodings come from K2's plain
+     version on the card and agree with the host oracle on 32 of them;
+     launch counters set to 0, the service accepts all (median of 3), and a
+     copy with one ledger hash ^ 1, one changed encoding and one flipped
+     sibling side (accounts picked from --seed) rejects exactly those
+     three; then each group alone (the plain and the zkApp accounts) at
+     256 and 512 accounts (median of 3 each), so that any mix's batch time
+     can be derived from a fixed and a per-account cost per group.
+     Proof-of-State: fixtures/pos_2e10_s2e4_b8.json.gz (8
+     proofs of 16 states and a bridge tip, toy tips at wrap 2^10 and step
+     2^4, tips decoded from the wire); counters set to 0, the service
+     accepts all 8 (median of 3) with K1-K6 launched, and a second batch
+     rejects exactly proof 1 (a changed candidate hash), proof 3 (proof 4's
+     tip) and proof 5 (its wrap opening's z1 + 1, isolated by the
+     bisection). finalize_batch over everything accepted, every inclusion
+     proof checked; a `{"service": {...}}` line;
+  9. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -103,6 +125,10 @@ OFF_PATH = {
 }
 TIPS = (17, 18, 8)  # the Pickles fixture: wrap log2 n, step log2 n, tips
 TIPS_FORGED = 5  # the tip whose step proof the serving check forges
+ACCOUNTS = 1024  # phase 8's Proof-of-Account batch
+ORACLE_ACCOUNTS = 32  # of them held against the host oracle (~0.1 s each)
+# phase 8's second Proof-of-State batch: proof index -> the reason expected
+POS_TAMPERS = {1: "state hash mismatch", 3: "tip proof binds wrong hash", 5: "tip proof invalid"}
 
 
 def log(*a):
@@ -472,14 +498,16 @@ def fresh(args) -> tuple:
     return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
-def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_rec: Recorder | None = None) -> list[dict]:
+def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_rec: Recorder | None = None,
+                  service_recs: dict | None = None) -> list[dict]:
     """Each kernel vs its plain version on every recorded input (the
-    Kimchi verify's and, with `tips_rec`, the tips verify's) and the extra
+    Kimchi verify's and, with `tips_rec`, the tips verify's; with
+    `service_recs`, {call: Recorder}, the service's calls') and the extra
     inputs; each kernel timed at every recorded shape, the plain version
     at the Kimchi verify's shape with the most lanes. The rows of K2 and
     the chains (K4, the K6 scan, K3's weighting, K5's repair) also get
     their critical-path floors from the probe; the K6 row its time at the
-    MSM's input."""
+    MSM's input; the K2 row its time and bound at each service shape."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -505,7 +533,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
         if not timed:
             raise RuntimeError(f"{name}: the verify never called this kernel")
         tips_timed = tips_rec.inputs.get(name, {}) if tips_rec else {}
-        sets = [*timed.values(), *tips_timed.values(), *extra.get(name, [])]
+        service_sets = [a for r in (service_recs or {}).values() for a in r.inputs.get(name, {}).values()]
+        sets = [*timed.values(), *tips_timed.values(), *extra.get(name, []), *service_sets]
         err = 0
         for args in sets:
             a = canon_out(name, args[0], kern(*fresh(args)))
@@ -549,6 +578,8 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
             "tips_ms_by_shape": [[[list(s) for s in k if isinstance(s, tuple)], tips_calls.get(k, 0), t]
                                  for k, t in tips_ms_at.items()],
         }
+        if name == "transcript_blocks" and service_recs:
+            row["service"] = {call: k2_service_shapes(kern, r) for call, r in service_recs.items()}
         if name == "transcript_blocks":
             # dependent products a block: 3 in the sbox, 1 for the MDS row
             ps, _, adds = args
@@ -585,9 +616,24 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
             row["ms_msm_2e16"] = cuda_ms(lambda: kern(*msm_scan), 20)
             row["shape_msm_2e16"] = [list(t.shape) for t in msm_scan[1:]]
         rows.append(row)
-        log(f"{name}: exact on {len(sets)} input sets ({len(tips_timed)} from the tips verify); "
+        log(f"{name}: exact on {len(sets)} input sets ({len(tips_timed)} from the tips verify, "
+            f"{len(service_sets)} from the service); "
             f"{ms:.4f} ms (plain {plain_ms:.3f} ms) at {key}")
     return rows
+
+
+def k2_service_shapes(kern, r: Recorder) -> dict:
+    """K2 in one recorded service call: per shape (T, 2, B, 22) its calls
+    in that call (service_phase checks that they sum to the counted run's
+    launches), its time (a CUDA-event mean over 20 launches) and its bound;
+    the sum of calls x time."""
+    shapes = []
+    for key, args in r.inputs["transcript_blocks"].items():
+        nbytes, ops = kernel_work("transcript_blocks", args)
+        shapes.append({"adds": list(key[1]), "calls": r.calls["transcript_blocks"][key],
+                       "ms": cuda_ms(lambda a=args: kern(*a), 20),
+                       "bound_ms": max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S) * 1e3})
+    return {"shapes": shapes, "device_ms": sum(x["calls"] * x["ms"] for x in shapes), "launches": None}
 
 
 def probe_latency(dev) -> dict:
@@ -806,6 +852,330 @@ def tips_phase(ctx: dict, rows: list[dict]) -> dict:
     }
 
 
+class PlainRoute:
+    """K2's plain version (transcript_blocks_plain) in place of its wrapper
+    while the block runs: the honest values phase 8 holds the service to."""
+
+    def __enter__(self):
+        from mina_bridge_tpu_torch.hash import transcript_kernel as tk
+
+        self.orig = tk.transcript_blocks
+        tk.transcript_blocks = tk.transcript_blocks_plain
+        return self
+
+    def __exit__(self, *exc):
+        from mina_bridge_tpu_torch.hash import transcript_kernel as tk
+
+        tk.transcript_blocks = self.orig
+
+
+def account_inputs(seed: int, dev) -> tuple[list, list, list]:
+    """ACCOUNTS accounts and depth-35 paths from `seed`
+    (bridge/fixtures.make_account_batch: every second one a zkApp); pub
+    inputs whose ledger hashes and Solidity encodings come from K2's plain
+    version on the card, held against the host oracle (host_merkle_root of
+    host_account_hash, the host encoding) on ORACLE_ACCOUNTS seeded
+    accounts. Returns (pubs, proofs, whether each account is a zkApp)."""
+    import torch
+
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import mina_types as mt
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
+    from mina_bridge_tpu_torch.bridge import verifier_service as vs
+    from mina_bridge_tpu_torch.bridge.merkle import LEDGER_DEPTH, device_merkle_roots, host_merkle_root
+    from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_sol
+    from mina_bridge_tpu_torch.bridge.state_hash import PREFIX_ACCOUNT, device_hash_with_prefix
+    from mina_bridge_tpu_torch.fields.params import NLIMBS
+
+    accounts, paths = bfx.make_account_batch(seed, ACCOUNTS, LEDGER_DEPTH)
+    with PlainRoute():
+        vks = vs._vk_digests(accounts, dev)
+        fields = [pm.account_fields(a, vk) for a, vk in zip(accounts, vks)]
+        # the leaves per field count, then every path in one fold (the
+        # service folds each group apart): half the plain route's blocks
+        leaves = torch.empty((ACCOUNTS, NLIMBS), dtype=torch.int64, device=dev)
+        for n in {len(f) for f in fields}:
+            idxs = [i for i, f in enumerate(fields) if len(f) == n]
+            leaves[idxs] = device_hash_with_prefix(PREFIX_ACCOUNT, vs._limbs([fields[i] for i in idxs], dev))
+        sibs = vs._limbs([[h[0] for _, h in path] for path in paths], dev)
+        left = torch.as_tensor([[side == "Left" for side, _ in path] for path in paths], device=dev)
+        roots = vs._ints(device_merkle_roots(leaves, sibs, left))
+    pubs = [pm.MinaAccountPubInputs(ledger_hash=r, encoded_account=encode_account_sol(a, vk))
+            for a, vk, r in zip(accounts, vks, roots)]
+    proofs = [pm.MinaAccountProof(merkle_path=path, account=mt.ACCOUNT.encode(a)) for a, path in zip(accounts, paths)]
+    for i in sorted(np.random.default_rng(seed + 4).choice(ACCOUNTS, ORACLE_ACCOUNTS, replace=False).tolist()):
+        leaf = pm.host_account_hash(accounts[i])
+        if host_merkle_root(leaf, [(side, h[0]) for side, h in paths[i]], LEDGER_DEPTH) != roots[i]:
+            raise RuntimeError(f"account {i}: the plain route's ledger hash is not the host oracle's")
+        if encode_account_sol(accounts[i]) != pubs[i].encoded_account:
+            raise RuntimeError(f"account {i}: the device vk hash gave another encoding than the host's")
+    return pubs, proofs, [a["zkapp"] is not None for a in accounts]
+
+
+def service_inputs(seed: int, dev) -> dict:
+    """Phase 8's inputs, before phase 5: the accounts (account_inputs), the
+    toy Proof-of-State fixture with both indexes on the card and its tips
+    decoded from the wire, seeded weights; then one accounts call with K2's
+    inputs recorded and one states call with every kernel's inputs
+    recorded, each on a service of its own."""
+    import torch
+
+    from mina_bridge_tpu_torch.bridge import aligned
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+
+    t0 = time.time()
+    pubs, proofs, zkapp = account_inputs(seed, dev)
+    accounts_s = time.time() - t0
+    t0 = time.time()
+    fx = bfx.load_pos_fixture()
+    dindex, step_dindex = pfx.device_index(fx["wrap_index"], str(dev)), pfx.device_index(fx["step_index"], str(dev))
+    tips = [p.tip_proof() for p in fx["proofs"]]
+    B = len(tips)
+    rng = np.random.default_rng(seed + 5)
+    rw = torch.as_tensor(
+        np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)] for _ in range(B)]),
+        device=dev,
+    )
+    torch.cuda.synchronize()
+    states_s = time.time() - t0
+    log(f"service inputs: {ACCOUNTS} accounts in {accounts_s:.1f} s; Proof-of-State fixture (wrap 2^{dindex.log_n}, "
+        f"step 2^{step_dindex.log_n}, B = {B}) and both indexes in {states_s:.1f} s")
+    with Recorder(only={"transcript_blocks"}) as acc_rec:
+        res = aligned.CudaVerifierService(dindex, step_dindex).submit_accounts(pubs, proofs)
+    if not all(r.ok for r in res):
+        raise RuntimeError(f"the service rejected honest accounts: {[(i, r.reason) for i, r in enumerate(res) if not r.ok][:5]}")
+    with Recorder() as st_rec:
+        res = aligned.CudaVerifierService(dindex, step_dindex).submit_states(fx["pubs"], fx["proofs"], tips, rw)
+    if not all(r.ok for r in res):
+        raise RuntimeError(f"the service rejected honest state proofs: {[(i, r.reason) for i, r in enumerate(res) if not r.ok]}")
+    # K2's checked and timed states-call inputs are the hashing's, over all
+    # 17 B states; the toy tips' own transcripts (B lanes) are phase 7's
+    # kind, checked there at the real tips' lengths
+    lanes = (pm.BRIDGE_TRANSITION_FRONTIER_LEN + 1) * B
+    for d in (st_rec.inputs, st_rec.calls):
+        d["transcript_blocks"] = {k: v for k, v in d["transcript_blocks"].items() if k[0][0] == lanes}
+    return {"seed": seed, "account_pubs": pubs, "account_proofs": proofs, "account_zkapp": zkapp, "fx": fx, "tips": tips, "rw": rw, "dindex": dindex,
+            "step_dindex": step_dindex, "recs": {"accounts_call": acc_rec, "states_call": st_rec},
+            "inputs_s": {"accounts": accounts_s, "states": states_s}}
+
+
+def timed_calls(svc_factory, submit, first_svc) -> tuple[list, dict, list, list]:
+    """Three runs of `submit(service)` each ending in a synchronize: the
+    first on `first_svc` (whose accepted proofs the commitment keeps, and
+    whose launches are counted from 0), the others on fresh services.
+    Returns (results of the first, its launch counts, run seconds, METRICS
+    stage seconds a run)."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.utils.profiling import METRICS
+
+    times, stages = [], []
+    for i in range(3):
+        svc = first_svc if i == 0 else svc_factory()
+        before = dict(METRICS.timings)
+        if i == 0:
+            kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = submit(svc)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        stages.append({k: v - before.get(k, 0.0) for k, v in METRICS.timings.items() if v != before.get(k, 0.0)})
+        if i == 0:
+            counts, first = dict(kernels.launches), res
+    return first, counts, times, stages
+
+
+def group_costs(new_service, pubs, proofs, zkapp) -> dict:
+    """Each account group alone (plain, zkApp) at half and all of its
+    accounts in the batch, each size the median of 3 runs on fresh services
+    with its launches counted in the first: a fixed and a per-account cost
+    a group, from which any mix's batch time can be derived (each group's
+    fixed cost, plus its accounts times its per-account cost)."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+
+    out = {}
+    for name, want in (("plain", False), ("zkapp", True)):
+        idxs = [i for i, z in enumerate(zkapp) if z == want]
+        sizes = (len(idxs) // 2, len(idxs))
+        g = {"fields": None, "ms": {}, "k2_launches": {}}
+        for n in sizes:
+            sub_pubs, sub_proofs = [pubs[i] for i in idxs[:n]], [proofs[i] for i in idxs[:n]]
+            times = []
+            for run in range(3):
+                svc = new_service()
+                if run == 0:
+                    kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = svc.submit_accounts(sub_pubs, sub_proofs)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                if run == 0:
+                    g["k2_launches"][n] = kernels.launches["transcript_blocks"]
+                if not all(r.ok for r in res):
+                    raise RuntimeError(f"the service rejected honest {name} accounts")
+            g["ms"][n] = sorted(times)[1] * 1e3
+        (n1, n2), (t1, t2) = sizes, (g["ms"][sizes[0]], g["ms"][sizes[1]])
+        g["ms_per_account"] = (t2 - t1) / (n2 - n1)
+        g["fixed_ms"] = t1 - n1 * g["ms_per_account"]
+        g["fields"] = 37 if want else 35
+        out[name] = g
+    return out
+
+
+def service_phase(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 8 after phase 7 (see the module docstring). Raises on any
+    wrong verdict, missing launch or failed inclusion proof; fills the K2
+    row's launches a service call and each row's launches a states call."""
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.bridge import aligned
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge.keccak import keccak256
+    from mina_bridge_tpu_torch.curves.host import PALLAS
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    dindex, step_dindex, rw, tips, fx = ctx["dindex"], ctx["step_dindex"], ctx["rw"], ctx["tips"], ctx["fx"]
+    pubs, proofs = ctx["account_pubs"], ctx["account_proofs"]
+
+    def new_service():
+        return aligned.CudaVerifierService(dindex, step_dindex)
+
+    svc = new_service()  # the batch that finalize_batch commits
+
+    # ---- Proof-of-Account ----
+    res, counts, times, stages = timed_calls(new_service, lambda s: s.submit_accounts(pubs, proofs), svc)
+    if not all(r.ok for r in res):
+        raise RuntimeError("the service rejected honest accounts")
+    if counts["transcript_blocks"] == 0:
+        raise RuntimeError("the accounts path never launched K2")
+    k2_row = next(r for r in rows if r["name"] == "transcript_blocks")
+    recorded = sum(x["calls"] for x in k2_row["service"]["accounts_call"]["shapes"])
+    if recorded != counts["transcript_blocks"]:
+        raise RuntimeError(f"K2: {recorded} calls in the recorded accounts call, {counts['transcript_blocks']} counted")
+    picks = np.random.default_rng(ctx["seed"] + 6).choice(len(pubs), 3, replace=False).tolist()
+    bad_pubs, bad_proofs = list(pubs), list(proofs)
+    i1, i2, i3 = picks
+    bad_pubs[i1] = dataclasses.replace(pubs[i1], ledger_hash=pubs[i1].ledger_hash ^ 1)
+    enc = bytearray(pubs[i2].encoded_account)
+    enc[-1] ^= 1
+    bad_pubs[i2] = dataclasses.replace(pubs[i2], encoded_account=bytes(enc))
+    path = list(proofs[i3].merkle_path)
+    side, h = path[7]
+    path[7] = ("Right" if side == "Left" else "Left", h)
+    bad_proofs[i3] = dataclasses.replace(proofs[i3], merkle_path=path)
+    got = {i: r.reason for i, r in enumerate(new_service().submit_accounts(bad_pubs, bad_proofs)) if not r.ok}
+    want = {i1: "merkle root != ledger hash", i2: "encoded account mismatch", i3: "merkle root != ledger hash"}
+    if got != want:
+        raise RuntimeError(f"tampered accounts: rejected {got}, expected {want}")
+    ms = sorted(times)[1] * 1e3
+    groups = group_costs(new_service, pubs, proofs, ctx["account_zkapp"])
+    accounts = {
+        "mix": "coverage: every second account a zkApp (37 fields), the others plain (35)",
+        "accounts": len(pubs), "depth": len(proofs[0].merkle_path),
+        "ms_per_batch": ms, "accounts_per_s": len(pubs) / ms * 1e3, "runs_s": times,
+        "stages_s": stages[sorted(range(3), key=lambda i: times[i])[1]],
+        "k2_launches": counts["transcript_blocks"], "k2_launches_predicted": 2 * (1 + len(proofs[0].merkle_path)) + 1,
+        "launches": counts, "oracle_accounts": ORACLE_ACCOUNTS,
+        "tampers_rejected": {"ledger hash ^ 1": i1, "encoded_account changed": i2, "sibling side flipped": i3},
+        "groups": groups,
+    }
+    log(f"accounts B={len(pubs)} depth {accounts['depth']}: {ms:.1f} ms per batch ({accounts['accounts_per_s']:.0f} "
+        f"accounts/s), K2 launches {counts['transcript_blocks']}; tampers {want} rejected; stages {accounts['stages_s']}")
+    for name, g in groups.items():
+        log(f"  {name} accounts alone: {g['ms']} ms by batch size, {g['fixed_ms']:.1f} ms fixed + "
+            f"{g['ms_per_account']:.3f} ms an account; K2 launches {g['k2_launches']}")
+
+    # ---- Proof-of-State ----
+    tips_k2 = []
+    orig = pv.batch_verify_tips
+
+    def counted(*a):
+        k2 = kernels.launches["transcript_blocks"]
+        try:
+            return orig(*a)
+        finally:
+            tips_k2.append(kernels.launches["transcript_blocks"] - k2)
+
+    pv.batch_verify_tips = counted
+    try:
+        res, counts_s, times_s, stages_s = timed_calls(
+            new_service, lambda s: s.submit_states(fx["pubs"], fx["proofs"], tips, rw), svc
+        )
+        if not all(r.ok for r in res):
+            raise RuntimeError(f"the service rejected honest state proofs: {[r.reason for r in res]}")
+        hash_k2 = counts_s["transcript_blocks"] - tips_k2[0]
+        recorded = sum(x["calls"] for x in k2_row["service"]["states_call"]["shapes"])
+        if recorded != hash_k2:
+            raise RuntimeError(f"K2: {recorded} hashing calls in the recorded states call, {hash_k2} counted")
+        path_kernels = ("pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble",
+                        "padd_select_scan", "padd_mixed_select2")
+        missing = [k for k in path_kernels if counts_s[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched in the states call: {missing}")
+        tips2 = list(tips)
+        pubs2 = list(fx["pubs"])
+        cand = list(pubs2[1].candidate_chain_state_hashes)
+        cand[3] ^= 1
+        pubs2[1] = dataclasses.replace(pubs2[1], candidate_chain_state_hashes=cand)
+        tips2[3] = tips[4]
+        wrap = tips[5].wrap
+        opening = dataclasses.replace(wrap.opening, z1=(wrap.opening.z1 + 1) % PALLAS.scalar.p)
+        tips2[5] = dataclasses.replace(tips[5], wrap=dataclasses.replace(wrap, opening=opening))
+        calls_before = len(tips_k2)
+        t0 = time.time()
+        res2 = svc.submit_states(pubs2, fx["proofs"], tips2, rw)
+        second_s = time.time() - t0
+        bisection_calls = len(tips_k2) - calls_before
+    finally:
+        pv.batch_verify_tips = orig
+    got = {i: r.reason for i, r in enumerate(res2) if not r.ok}
+    if got != POS_TAMPERS:
+        raise RuntimeError(f"second states batch: rejected {got}, expected {POS_TAMPERS}")
+    ms_s = sorted(times_s)[1] * 1e3
+    B = len(fx["pubs"])
+    states = {
+        "fixture": str(bfx.POS_FIXTURE.relative_to(ROOT)), "B": B, "wrap_log_n": dindex.log_n, "step_log_n": step_dindex.log_n,
+        "ms_per_batch": ms_s, "proofs_per_s": B / ms_s * 1e3, "runs_s": times_s,
+        "stages_s": stages_s[sorted(range(3), key=lambda i: times_s[i])[1]],
+        "k2_launches_hashing": hash_k2, "k2_launches_tips": tips_k2[0], "launches": counts_s,
+        "second_batch": {"rejected": {str(k): v for k, v in got.items()}, "bisection_calls": bisection_calls,
+                         "s": second_s},
+    }
+    log(f"states B={B} (toy tips): {ms_s:.1f} ms per batch; K2 launches hashing {hash_k2}, tips {tips_k2[0]}; second "
+        f"batch rejected {got} in {bisection_calls} tips calls; stages {states['stages_s']}")
+    for row in rows:
+        row["launches_per_states_call"] = counts_s[row["name"]]
+        if row["name"] == "transcript_blocks":
+            row["service"]["accounts_call"]["launches"] = counts["transcript_blocks"]
+            row["service"]["states_call"]["launches"] = hash_k2  # the tips verify's 7 are phase 7's kind
+
+    # ---- the batch commitment ----
+    n_pending = len(svc.pending)
+    t0 = time.time()
+    data = svc.finalize_batch()
+    finalize_s = time.time() - t0
+    t0 = time.time()
+    for d in data:
+        leaf = keccak256(d.proof_commitment + d.pub_input_commitment + d.proving_system_aux_commitment)
+        if not aligned.verify_batch_inclusion(leaf, d.batch_inclusion_proof, d.index_in_batch, d.batch_merkle_root):
+            raise RuntimeError(f"inclusion proof {d.index_in_batch} does not verify")
+    inclusion_s = time.time() - t0
+    if n_pending != len(pubs) + 2 * B - len(POS_TAMPERS) or len({d.batch_merkle_root for d in data}) != 1:
+        raise RuntimeError(f"the commitment holds {n_pending} proofs")
+    commitment = {"proofs": len(data), "finalize_ms": finalize_s * 1e3, "inclusion_check_ms": inclusion_s * 1e3,
+                  "depth": len(data[0].batch_inclusion_proof), "root": data[0].batch_merkle_root.hex()}
+    log(f"commitment over {len(data)} proofs: finalize {finalize_s * 1e3:.0f} ms, inclusion proofs checked in "
+        f"{inclusion_s * 1e3:.0f} ms")
+    return {"accounts": accounts, "states": states, "commitment": commitment, "inputs_s": ctx["inputs_s"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -888,12 +1258,14 @@ def main() -> int:
                      "points_per_s": n / msm_ms * 1e3}
     log(f"MSM 2^16: pmsm {msm_ms:.1f} ms ({n / msm_ms * 1e3:.0f} points/s); plain {plain_msm_ms:.1f} ms; equal")
 
-    # ---- 7, first part: the tips, both indexes, one recorded tips verify ----
+    # ---- 7 and 8, first part: the tips, the service's inputs, recorded calls ----
     tips_ctx = tips_inputs(args.seed, dev)
+    service_ctx = service_inputs(args.seed, dev)
 
     # ---- 5. kernels vs plain versions ----
     msm_scan = next(iter(msm_rec.inputs["padd_mixed_select2"].values()))
-    rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan, tips_ctx["rec"])
+    rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan, tips_ctx["rec"],
+                         service_ctx["recs"])
 
     # ---- 6. the main path, counted ----
     kernels.reset_launches()
@@ -926,10 +1298,14 @@ def main() -> int:
     # ---- 7. Pickles tips, counted ----
     report["pickles"] = tips = tips_phase(tips_ctx, rows)
 
+    # ---- 8. the verifier service, counted ----
+    report["service"] = service = service_phase(service_ctx, rows)
+
     report["kernels"] = rows
     report["total_s"] = time.time() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"pickles": tips}))
+    print(json.dumps({"service": service}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,15 @@
 host (Python int) sponge.
 
 Counterpart of mina_bridge_tpu/hash/poseidon.py: `permute`, `Sponge`,
-`run_transcript` and the host `HostSponge` / `host_permute_py`. Width 3,
-rate 2, 55 full rounds; each round applies the x^7 sbox to every word,
-then the MDS matrix, then the round constants.
+`hash_fixed`, `run_transcript` and the host `HostSponge` /
+`host_permute_py`. Width 3, rate 2, 55 full rounds; each round applies the
+x^7 sbox to every word, then the MDS matrix, then the round constants.
 
 Device state has shape (..., 3, 22) (ffl REP limbs). `run_transcript`
 simulates a static absorb/squeeze schedule into T permutation blocks and
 runs them all through one call of the K2 wrapper
 (hash/transcript_kernel.py): the CUDA kernel on the card, the plain torch
-loop on the CPU.
+loop on the CPU. `hash_fixed` is one such call with a schedule of its own.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from .poseidon_params import RATE, WIDTH, PoseidonSpec, poseidon_spec
 __all__ = [
     "poseidon_spec",
     "permute",
+    "hash_fixed",
     "Sponge",
     "run_transcript",
     "HostSponge",
@@ -74,6 +75,28 @@ def initial_state(ps: PoseidonSpec, batch_shape: tuple[int, ...] = (), device="c
 def _to_rep(x: torch.Tensor) -> torch.Tensor:
     """Accept canonical 20-limb or REP 22-limb input."""
     return ffl.from_canon(x)
+
+
+def hash_fixed(ps: PoseidonSpec, inputs: torch.Tensor) -> torch.Tensor:
+    """Hash a fixed-length sequence of field elements (kimchi `hash`):
+    absorb the n inputs, squeeze once.
+
+    inputs: (..., n, 20 or 22) -> canonical (..., 20). The schedule is
+    fixed: T = ceil(max(n, 1) / 2) blocks, each adding two inputs (the
+    last one zero when n is odd, both when n = 0) to the rate and
+    permuting; the digest is word 0 after the last block. So the inputs,
+    padded with zeros to 2 T, are one K2 call over every lane from the
+    zero state."""
+    from .transcript_kernel import transcript_blocks
+
+    x = _to_rep(inputs)
+    *bshape, n, L = x.shape
+    T = max(-(-n // RATE), 1)
+    x = torch.nn.functional.pad(x, (0, 0, 0, RATE * T - n))
+    adds = x.reshape(*bshape, T, RATE, L).movedim(-3, 0).movedim(-2, 1)  # (T, 2, ..., L)
+    state = initial_state(ps, tuple(bshape), x.device)
+    out = transcript_blocks(ps, state, adds)
+    return ffl.canon(ps.field, out[-1][..., 0, :])
 
 
 class Sponge:

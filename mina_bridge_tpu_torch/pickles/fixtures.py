@@ -5,7 +5,8 @@ Counterpart of the loading half of mina_bridge_tpu/pickles/fixtures.py
 `load_step_dindex`). fixtures/pickles_2e<wrap>_s2e<step>_b<B>.json.gz
 hold B tips (wrap 2^17 on Pallas, step 2^18 on Vesta) and both verifier
 indexes' commitments as hex-int JSON, so neither index is rebuilt from
-its circuit.
+its circuit. `device_index` puts such a host index on a device (the toy
+Proof-of-State fixture's too, bridge/fixtures.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ def load_tips(path: pathlib.Path):
     return doc["block_log_n"], doc["step_log_n"], tips, index, step_index
 
 
-def _dindex(host_index, device):
+def device_index(host_index, device: str | None = None):
+    """A host verifier index on `device` (the card unless "cpu"), over the
+    SRS prefix it was committed over; None for None."""
     if host_index is None:
         return None
     srs = load_srs(host_index.curve.name, host_index.chunk_size)
@@ -57,11 +60,11 @@ def load_wrap_dindex(block_log_n: int, step_log_n: int, batch: int, device: str 
     """The wrap (Pallas) verifier index of the committed fixture on
     `device` (the card unless "cpu"); None when there is no such fixture or it holds no index."""
     path = fixture_path(block_log_n, step_log_n, batch)
-    return _dindex(load_tips(path)[3], device) if path.exists() else None
+    return device_index(load_tips(path)[3], device) if path.exists() else None
 
 
 def load_step_dindex(block_log_n: int, step_log_n: int, batch: int, device: str | None = None):
     """The step (Vesta) verifier index of the committed fixture on
     `device` (the card unless "cpu"); None when there is no such fixture or it holds no index."""
     path = fixture_path(block_log_n, step_log_n, batch)
-    return _dindex(load_tips(path)[4], device) if path.exists() else None
+    return device_index(load_tips(path)[4], device) if path.exists() else None

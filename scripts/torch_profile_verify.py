@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile_verify.py [--batch 32] [--reps 5]
     python3 scripts/torch_profile_verify.py --pickles [--batch 8]
+    python3 scripts/torch_profile_verify.py --service accounts|states
 
 Loads the committed fixture (n = 2^16), builds the verifier index on the
 card and runs one warm-up verify, then measures the items below. With
@@ -10,7 +11,13 @@ card and runs one warm-up verify, then measures the items below. With
 (pickles/verifier.py::batch_verify_tips on
 fixtures/pickles_2e17_s2e18_b<batch>.json.gz, both indexes from the
 fixture; `batch` 2 or 8), and the stage split also times the host's
-public-commitment hints:
+public-commitment hints. With --service the verify is one batch of the
+verifier service (bridge/verifier_service.py): `accounts`, 1,024 accounts
+from bridge/fixtures.make_account_batch on depth-35 paths (ledger hashes
+from the service's own fold) through `verify_accounts_batch`; `states`,
+the toy Proof-of-State fixture (B = 8, tips at wrap 2^10 / step 2^4,
+indexes built on the card) through `verify_states_batch`, and the stage
+split is the service's own `METRICS` stages. Measured:
   * `reps` verifies on the host clock (each ends in a synchronize):
     min / median / max ms per batch;
   * a stage split on the host clock: the Poseidon transcripts (K2), the
@@ -27,7 +34,8 @@ verify (host clock, each run ends in a synchronize; median of `reps`),
 and checks that every G gives the same MSM point; the profile then runs at
 the package's default G.
 Prints one JSON line and writes it to profile_verify.json
-(profile_pickles.json with --pickles) in the repo's output directory.
+(profile_pickles.json with --pickles, profile_service_<which>.json with
+--service) in the repo's output directory.
 Needs one CUDA card.
 """
 
@@ -140,9 +148,12 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--sweep-g", default="", help="comma-separated chunk counts G to time the MSM and verify at")
+    ap.add_argument("--service", choices=("accounts", "states"), help="profile one verifier-service batch")
     args = ap.parse_args()
-    if args.sweep_g and args.pickles:
-        ap.error("--sweep-g times the Kimchi verify; it does not combine with --pickles")
+    if args.sweep_g and (args.pickles or args.service):
+        ap.error("--sweep-g times the Kimchi verify; it does not combine with --pickles or --service")
+    if args.pickles and args.service:
+        ap.error("--pickles and --service profile different verifies")
 
     import torch
 
@@ -161,7 +172,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    srs = load_srs("pallas")
+    srs = None if args.pickles or args.service else load_srs("pallas")
     rng = np.random.default_rng(args.seed)
 
     def weights(B, n):
@@ -170,7 +181,35 @@ def main() -> int:
             device=dev,
         )
 
-    if args.pickles:
+    if args.service:
+        from mina_bridge_tpu_torch.bridge import fixtures as bfx
+        from mina_bridge_tpu_torch.bridge import mina_types as mt
+        from mina_bridge_tpu_torch.bridge import proof_model as pm
+        from mina_bridge_tpu_torch.bridge import verifier_service as vs
+        from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_sol
+        from mina_bridge_tpu_torch.pickles import fixtures as pfx
+        from mina_bridge_tpu_torch.pickles import verifier as pv
+
+        if args.service == "accounts":
+            accounts, paths = bfx.make_account_batch(args.seed, args.batch or 1024)
+            vks = vs._vk_digests(accounts, dev)
+            roots = vs._ledger_roots([pm.account_fields(a, vk) for a, vk in zip(accounts, vks)], paths, dev)
+            pubs = [pm.MinaAccountPubInputs(r, encode_account_sol(a, vk)) for a, vk, r in zip(accounts, vks, roots)]
+            proofs = [pm.MinaAccountProof(path, mt.ACCOUNT.encode(a)) for a, path in zip(accounts, paths)]
+            B = len(pubs)
+
+            def verify():
+                return all(r.ok for r in vs.verify_accounts_batch(pubs, proofs))
+        else:
+            fx = bfx.load_pos_fixture()
+            dindex, step_dindex = pfx.device_index(fx["wrap_index"], str(dev)), pfx.device_index(fx["step_index"], str(dev))
+            dtips = pv.DeviceTips.from_host([p.tip_proof() for p in fx["proofs"]], dev)
+            B = len(fx["pubs"])
+            rw = weights(B, 5)
+
+            def verify():
+                return all(r.ok for r in vs.verify_states_batch(fx["pubs"], fx["proofs"], dtips, rw, dindex, step_dindex))
+    elif args.pickles:
         from mina_bridge_tpu_torch.pickles import fixtures as pfx
         from mina_bridge_tpu_torch.pickles import verifier as pv
 
@@ -240,12 +279,21 @@ def main() -> int:
 
     _, times = median_ms(run)
 
-    with StageTimer(torch, args.pickles) as st:
+    if args.service:
+        from mina_bridge_tpu_torch.utils.profiling import METRICS
+
+        before = dict(METRICS.timings)
         t0 = time.perf_counter()
         run()
         staged_ms = (time.perf_counter() - t0) * 1e3
-    stages = dict(st.ms)
-    stages["rest (plain torch ops, host)"] = staged_ms - sum(st.ms.values())
+        stages = {k: (v - before.get(k, 0.0)) * 1e3 for k, v in METRICS.timings.items() if v != before.get(k, 0.0)}
+    else:
+        with StageTimer(torch, args.pickles) as st:
+            t0 = time.perf_counter()
+            run()
+            staged_ms = (time.perf_counter() - t0) * 1e3
+        stages = dict(st.ms)
+        stages["rest (plain torch ops, host)"] = staged_ms - sum(st.ms.values())
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -270,7 +318,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:15]
     result = {
         "card": card,
-        "verify": "pickles tips (wrap 2^17, step 2^18)" if args.pickles else "kimchi 2^16",
+        "verify": f"service {args.service}" if args.service else
+        "pickles tips (wrap 2^17, step 2^18)" if args.pickles else "kimchi 2^16",
         "batch": B,
         "G": pmsm.G_DEFAULT,
         "g_sweep": sweep,
@@ -287,7 +336,8 @@ def main() -> int:
     }
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / ("profile_pickles.json" if args.pickles else "profile_verify.json")).write_text(json.dumps(result, indent=1))
+    name = f"profile_service_{args.service}" if args.service else "profile_pickles" if args.pickles else "profile_verify"
+    (out / f"{name}.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

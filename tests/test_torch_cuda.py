@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K7, and the MSM's one-launch phases of K3
-and K5) against their plain PyTorch versions on the card, and the Pickles
-tips verify on the committed b2 fixture. Exact: equal canonical limbs.
+and K5) against their plain PyTorch versions on the card, the Pickles
+tips verify on the committed b2 fixture, and the verifier service's
+Proof-of-Account and Proof-of-State batches. Exact: equal canonical limbs.
 Imports only the port, so it runs
 where JAX is not installed:
 
@@ -243,3 +244,59 @@ def test_pickles_tips(dev):
     evals[0, 3, 0] = torch.as_tensor(int_to_limbs(e, NLIMBS), device=dev)
     forged = dataclasses.replace(dtips, step=dataclasses.replace(dtips.step, evals=evals))
     assert pv.batch_verify_tips(forged, rw, dindex, step_dindex) is False
+
+
+def test_accounts_service(dev, monkeypatch):
+    """verify_accounts_batch on 64 seeded accounts (every second one a
+    zkApp) on seeded depth-35 paths: the K2 route's Merkle roots equal K2's
+    plain version's, and every account is accepted against them (one also
+    through verify_proof_of_account)."""
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import mina_types as mt
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
+    from mina_bridge_tpu_torch.bridge import verifier_service as vs
+    from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_sol
+    from mina_bridge_tpu_torch.hash import transcript_kernel as tk
+
+    accounts, paths = bfx.make_account_batch(64, 64)
+    vks = vs._vk_digests(accounts, dev)
+    fields = [pm.account_fields(a, vk) for a, vk in zip(accounts, vks)]
+    roots = vs._ledger_roots(fields, paths, dev)
+    with monkeypatch.context() as m:
+        m.setattr(tk, "transcript_blocks", tk.transcript_blocks_plain)
+        assert vs._vk_digests(accounts, dev) == vks
+        assert vs._ledger_roots(fields, paths, dev) == roots
+    pubs = [pm.MinaAccountPubInputs(ledger_hash=r, encoded_account=encode_account_sol(a, vk)) for a, vk, r in zip(accounts, vks, roots)]
+    proofs = [pm.MinaAccountProof(merkle_path=p, account=mt.ACCOUNT.encode(a)) for a, p in zip(accounts, paths)]
+    assert all(r.ok for r in vs.verify_accounts_batch(pubs, proofs, "cuda"))
+    assert vs.verify_proof_of_account(pubs[1], proofs[1], "cuda").ok
+
+
+def test_states_service(dev):
+    """verify_states_batch on 2 proofs of the toy Proof-of-State fixture
+    (wrap 2^10, step 2^4; indexes built on the card): both accepted, and
+    the first alone through verify_proof_of_state; with the second tip's
+    wrap opening z1 + 1, exactly that proof is rejected."""
+    import dataclasses
+
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import verifier_service as vs
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    fx = bfx.load_pos_fixture()
+    dindex, step_dindex = pfx.device_index(fx["wrap_index"], "cuda"), pfx.device_index(fx["step_index"], "cuda")
+    pubs, proofs = fx["pubs"][:2], fx["proofs"][:2]
+    tips = [p.tip_proof() for p in proofs]
+    rng = np.random.default_rng(6)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int(rng.integers(1, 1 << 62)), NLIMBS) for _ in range(5)] for _ in range(2)]), device=dev)
+    got = vs.verify_states_batch(pubs, proofs, pv.DeviceTips.from_host(tips, dev), rw, dindex, step_dindex, "cuda")
+    assert [(r.ok, r.reason) for r in got] == [(True, "")] * 2
+    one = vs.verify_proof_of_state(pubs[0], proofs[0], pv.DeviceTips.from_host(tips[:1], dev), rw[:1], dindex, step_dindex, "cuda")
+    assert (one.ok, one.reason) == (True, "")
+    wrap = tips[1].wrap
+    opening = dataclasses.replace(wrap.opening, z1=(wrap.opening.z1 + 1) % PALLAS.scalar.p)
+    tips[1] = dataclasses.replace(tips[1], wrap=dataclasses.replace(wrap, opening=opening))
+    got = vs.verify_states_batch(pubs, proofs, pv.DeviceTips.from_host(tips, dev), rw, dindex, step_dindex, "cuda")
+    assert [(r.ok, r.reason) for r in got] == [(True, ""), (False, "tip proof invalid")]
