@@ -67,7 +67,33 @@ Phases (any failure exits non-zero and prints no result):
      tip) and proof 5 (its wrap opening's z1 + 1, isolated by the
      bisection). finalize_batch over everything accepted, every inclusion
      proof checked; a `{"service": {...}}` line;
-  9. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+  9. the operator's path (cli.py -> sdk.py::BridgeSdk -> the GraphQL client
+     -> the service -> the Ethereum client) against the port's mock nodes
+     (bridge/mock_chain.py), its inputs made before phase 5 so that the
+     inputs of one recorded submit-state call (every kernel's: the chain
+     hashing and the toy tips verify) and one submit-account call (K2's)
+     join phase 5's checks. Through the SDK: for each of the 8 fixture
+     proofs on fresh nodes, update_bridge_chain (counters set to 0 before
+     each call: K1-K6 launched) stores the candidate chain, a repeat
+     returns False, and the chain served with the next proof's tip is
+     rejected with the JAX reason, the contract unchanged; 64
+     validate_account calls at depth 35 (bridge/fixtures.make_account_batch
+     from --seed, every second a zkApp; K2 launched in each) each leave the
+     account's pub input on the contract, and one with its ledger hash ^ 1
+     is rejected with the JAX reason. One call of each kind under
+     torch.profiler (device busy time, idle share). Then the CLI, as an
+     operator runs it: `python -m mina_bridge_tpu_torch.cli submit-state
+     --devnet`, `submit-account <pk> <state-hash> --devnet` (exit 0, settled
+     on the contracts) and submit-state against a node serving a foreign
+     tip (exit 1, the contract unchanged), each a process of its own
+     against the nodes served over HTTP on 127.0.0.1; their walls (cold:
+     imports, kernel libraries, SRS, indexes) and output
+     (chiprun_out/cli_*.txt), and a fresh process's import and CUDA-context
+     seconds. A `{"bridge": {...}}` line: per-call medians and stage splits
+     (the in-process mock nodes' work a stage of its own), launches per
+     call, sleeps counted in the timed calls, the profiles, the CLI's exit
+     codes and walls;
+ 10. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -129,6 +155,12 @@ ACCOUNTS = 1024  # phase 8's Proof-of-Account batch
 ORACLE_ACCOUNTS = 32  # of them held against the host oracle (~0.1 s each)
 # phase 8's second Proof-of-State batch: proof index -> the reason expected
 POS_TAMPERS = {1: "state hash mismatch", 3: "tip proof binds wrong hash", 5: "tip proof invalid"}
+BRIDGE_ACCOUNTS = 64  # phase 9's validate_account calls
+BRIDGE_ORACLE = 8  # of them held against the host oracle
+STATE_REJECT = "state proof rejected: tip proof binds wrong hash"
+ACCOUNT_REJECT = "account proof rejected: merkle root != ledger hash"
+STATE_PATH = ("pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan",
+              "padd_mixed_select2")
 
 
 def log(*a):
@@ -869,13 +901,13 @@ class PlainRoute:
         tk.transcript_blocks = self.orig
 
 
-def account_inputs(seed: int, dev) -> tuple[list, list, list]:
-    """ACCOUNTS accounts and depth-35 paths from `seed`
+def account_inputs(seed: int, dev, n: int = ACCOUNTS, oracle: int = ORACLE_ACCOUNTS) -> tuple[list, list, list]:
+    """n accounts and depth-35 paths from `seed`
     (bridge/fixtures.make_account_batch: every second one a zkApp); pub
     inputs whose ledger hashes and Solidity encodings come from K2's plain
     version on the card, held against the host oracle (host_merkle_root of
-    host_account_hash, the host encoding) on ORACLE_ACCOUNTS seeded
-    accounts. Returns (pubs, proofs, whether each account is a zkApp)."""
+    host_account_hash, the host encoding) on `oracle` seeded accounts.
+    Returns (pubs, proofs, whether each account is a zkApp)."""
     import torch
 
     from mina_bridge_tpu_torch.bridge import fixtures as bfx
@@ -887,15 +919,15 @@ def account_inputs(seed: int, dev) -> tuple[list, list, list]:
     from mina_bridge_tpu_torch.bridge.state_hash import PREFIX_ACCOUNT, device_hash_with_prefix
     from mina_bridge_tpu_torch.fields.params import NLIMBS
 
-    accounts, paths = bfx.make_account_batch(seed, ACCOUNTS, LEDGER_DEPTH)
+    accounts, paths = bfx.make_account_batch(seed, n, LEDGER_DEPTH)
     with PlainRoute():
         vks = vs._vk_digests(accounts, dev)
         fields = [pm.account_fields(a, vk) for a, vk in zip(accounts, vks)]
         # the leaves per field count, then every path in one fold (the
         # service folds each group apart): half the plain route's blocks
-        leaves = torch.empty((ACCOUNTS, NLIMBS), dtype=torch.int64, device=dev)
-        for n in {len(f) for f in fields}:
-            idxs = [i for i, f in enumerate(fields) if len(f) == n]
+        leaves = torch.empty((n, NLIMBS), dtype=torch.int64, device=dev)
+        for flen in {len(f) for f in fields}:
+            idxs = [i for i, f in enumerate(fields) if len(f) == flen]
             leaves[idxs] = device_hash_with_prefix(PREFIX_ACCOUNT, vs._limbs([fields[i] for i in idxs], dev))
         sibs = vs._limbs([[h[0] for _, h in path] for path in paths], dev)
         left = torch.as_tensor([[side == "Left" for side, _ in path] for path in paths], device=dev)
@@ -903,7 +935,7 @@ def account_inputs(seed: int, dev) -> tuple[list, list, list]:
     pubs = [pm.MinaAccountPubInputs(ledger_hash=r, encoded_account=encode_account_sol(a, vk))
             for a, vk, r in zip(accounts, vks, roots)]
     proofs = [pm.MinaAccountProof(merkle_path=path, account=mt.ACCOUNT.encode(a)) for a, path in zip(accounts, paths)]
-    for i in sorted(np.random.default_rng(seed + 4).choice(ACCOUNTS, ORACLE_ACCOUNTS, replace=False).tolist()):
+    for i in sorted(np.random.default_rng(seed + 4).choice(n, oracle, replace=False).tolist()):
         leaf = pm.host_account_hash(accounts[i])
         if host_merkle_root(leaf, [(side, h[0]) for side, h in paths[i]], LEDGER_DEPTH) != roots[i]:
             raise RuntimeError(f"account {i}: the plain route's ledger hash is not the host oracle's")
@@ -1176,6 +1208,382 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
     return {"accounts": accounts, "states": states, "commitment": commitment, "inputs_s": ctx["inputs_s"]}
 
 
+def bridge_nodes(fx: dict, b: int, tip_of: int | None = None):
+    """Fresh port mock nodes for fixture proof b: the Mina node serves the
+    bridge tip state first (the CLI reads it by its hash), then the 16
+    candidates, and proof tip_of's tip (b's by default) as its wire blob;
+    the Ethereum node is rooted at the bridge tip."""
+    from mina_bridge_tpu_torch.bridge import mock_chain as mc
+    from mina_bridge_tpu_torch.bridge.pickles_wire import TIP_PROOF
+
+    pub, proof = fx["pubs"][b], fx["proofs"][b]
+    tip = TIP_PROOF.encode(fx["proofs"][b if tip_of is None else tip_of].candidate_tip_proof)
+    mina = mc.MockMinaNode([proof.bridge_tip_state] + proof.candidate_chain_states, tip,
+                           [pub.bridge_tip_state_hash] + pub.candidate_chain_state_hashes)
+    return mc.MockEthNode(pub.bridge_tip_state_hash), mina
+
+
+def bridge_sdk(eth_node, mina_node, indexes, dev):
+    """The CLI's SDK (cli.make_sdk: the batch root posted to the registry)
+    over in-process transports, signing with the Anvil key."""
+    from mina_bridge_tpu_torch import cli
+    from mina_bridge_tpu_torch.bridge import eth, mina_graphql
+    from mina_bridge_tpu_torch.utils.constants import ANVIL_CHAIN_ID, ANVIL_PRIVATE_KEY
+
+    client = eth.EthClient(eth_node, ANVIL_CHAIN_ID, eth.Wallet(ANVIL_PRIVATE_KEY))
+    return cli.make_sdk(client, mina_graphql.MinaClient(mina_node), eth_node.state_contract_addr,
+                        eth_node.account_contract_addr, indexes, str(dev))
+
+
+def add_accounts(mina_node, pubs, proofs) -> list[str]:
+    keys = [f"B62qchipsmoke{i}" for i in range(len(pubs))]
+    for key, pub, proof in zip(keys, pubs, proofs):
+        mina_node.add_account(key, proof.account, proof.merkle_path, pub.ledger_hash)
+    return keys
+
+
+class StageClock:
+    """Host-clock seconds of selected functions while the block runs, each
+    exclusive of the other selected functions it calls, summed by stage."""
+
+    def __init__(self, sites):
+        self.sites, self.s, self.stack, self.orig = sites, {}, [], []
+
+    def __enter__(self):
+        for owner, attr, stage in self.sites:
+            fn = getattr(owner, attr)
+            self.orig.append((owner, attr, fn))
+            self.s.setdefault(stage, 0.0)
+
+            def wrapped(*a, _fn=fn, _stage=stage, **kw):
+                t0 = time.perf_counter()
+                self.stack.append(0.0)
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    inner = self.stack.pop()
+                    dt = time.perf_counter() - t0
+                    self.s[_stage] += dt - inner
+                    if self.stack:
+                        self.stack[-1] += dt
+
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.orig):
+            setattr(owner, attr, fn)
+
+
+def stage_sites(kind: str) -> list:
+    """(owner, function, stage) of a submit-state or submit-account call.
+    The mock nodes answer in-process, so their work (the contract models'
+    keccak, RLP decoding, GraphQL answers) is a stage of its own, not the
+    client's."""
+    from mina_bridge_tpu_torch.bridge import aligned, eth
+    from mina_bridge_tpu_torch.bridge import mina_graphql as mg
+    from mina_bridge_tpu_torch.bridge import mock_chain as mc
+    from mina_bridge_tpu_torch.bridge import verifier_service as vs
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    svc = aligned.CudaVerifierService
+    common = [(svc, "finalize_batch", "finalize_batch (keccak)"), (eth.EthClient, "send_tx", "sign and send"),
+              (eth.EthClient, "wait_receipt", "sign and send"), (eth.EthClient, "call", "contract reads"),
+              (mc.MockEthNode, "__call__", "mock nodes"), (mc.MockMinaNode, "__call__", "mock nodes")]
+    if kind == "state":
+        return [(mg, "get_mina_proof_of_state", "graphql and decode"), (vs, "full_state_hashes", "state hashing"),
+                (pv, "batch_verify_tips", "tips verify"), (svc, "submit_states", "service checks")] + common
+    return [(mg, "get_mina_proof_of_account", "graphql, decode, encoding"), (vs, "_vk_digests", "account hashing"),
+            (vs, "_ledger_roots", "account hashing"), (svc, "submit_accounts", "service checks")] + common
+
+
+class SleepCount:
+    """Counts time.sleep calls while the block runs (each still sleeps)."""
+
+    def __enter__(self):
+        self.n, self.orig = 0, time.sleep
+
+        def counted(s):
+            self.n += 1
+            self.orig(s)
+
+        time.sleep = counted
+        return self
+
+    def __exit__(self, *exc):
+        time.sleep = self.orig
+
+
+def profiled(fn) -> dict:
+    """One call of fn under torch.profiler, tracing the device only (host
+    operator events would cost the analysis tens of seconds at a tips
+    verify's ~50 k launches): host wall, device busy time (the union of the
+    kernel intervals), idle share, kernels, and the analysis's seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scripts.torch_profile_verify import union_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    if not kernels:
+        raise RuntimeError("the profiler saw no device work")
+    busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_kernels": len(kernels), "analysis_s": time.perf_counter() - t0}
+
+
+def bridge_inputs(seed: int, dev) -> dict:
+    """Phase 9's inputs, before phase 5: the CLI's verifier indexes
+    (cli.verifier_indexes on the card), BRIDGE_ACCOUNTS accounts from `seed`
+    (account_inputs), then one submit-state call (fixture proof 0) with
+    every kernel's inputs recorded and one submit-account call (account 0,
+    a zkApp) with K2's, each on fresh mock nodes."""
+    import torch
+
+    from mina_bridge_tpu_torch import cli
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+
+    t_start = t0 = time.time()
+    indexes = cli.verifier_indexes(str(dev))
+    fx = bfx.load_pos_fixture()
+    torch.cuda.synchronize()
+    indexes_s = time.time() - t0
+    t0 = time.time()
+    pubs, proofs, zkapp = account_inputs(seed, dev, BRIDGE_ACCOUNTS, BRIDGE_ORACLE)
+    accounts_s = time.time() - t0
+    eth_node, mina_node = bridge_nodes(fx, 0)
+    sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+    keys = add_accounts(mina_node, pubs[:1], proofs[:1])
+    with Recorder() as st_rec:
+        ok = sdk.update_bridge_chain(fx["proofs"][0].bridge_tip_state)
+    with Recorder(only={"transcript_blocks"}) as acc_rec:
+        sdk.validate_account(keys[0], hex(fx["pubs"][0].candidate_chain_state_hashes[-1]))
+    if ok is not True or eth_node.state.state_hashes != fx["pubs"][0].candidate_chain_state_hashes:
+        raise RuntimeError("the recorded submit-state call did not bridge the chain")
+    log(f"bridge inputs: indexes and fixture in {indexes_s:.1f} s, {BRIDGE_ACCOUNTS} accounts in {accounts_s:.1f} s")
+    return {"dev": dev, "fx": fx, "indexes": indexes, "accounts": (pubs, proofs, zkapp),
+            "recs": {"sdk_state_call": st_rec, "sdk_account_call": acc_rec},
+            "inputs_s": {"indexes": indexes_s, "accounts": accounts_s, "all": time.time() - t_start}}
+
+
+def run_cli(args: list[str], eth_url: str, mina_url: str, eth_node, name: str) -> tuple[int, float]:
+    """`python -m mina_bridge_tpu_torch.cli ...` in a process of its own, as
+    an operator runs it, against the served nodes; its output goes to
+    chiprun_out/cli_<name>.txt. Returns (exit code, wall seconds)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in ("PRIVATE_KEY", "KEYSTORE_PATH", "NETWORK", "ETH_CHAIN_ID")}
+    env.update(MINA_RPC_URL=mina_url + "/graphql", ETH_RPC_URL=eth_url,
+               STATE_SETTLEMENT_ETH_ADDR="0x" + eth_node.state_contract_addr.hex(),
+               ACCOUNT_VALIDATION_ETH_ADDR="0x" + eth_node.account_contract_addr.hex())
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "mina_bridge_tpu_torch.cli", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.time() - t0
+    (OUT / f"cli_{name}.txt").write_text(f"$ {' '.join(args)}\nexit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    return proc.returncode, wall
+
+
+COLD_START = """
+import time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import mina_bridge_tpu_torch.cli, mina_bridge_tpu_torch.sdk
+t2 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print(t1 - t0, t2 - t1, t3 - t2)
+"""
+
+
+def cold_start() -> dict:
+    """Where a fresh process's first seconds go, as the CLI's would: the
+    wall of `python -c` importing torch, then the port's CLI and SDK
+    modules, then making the CUDA context, and each step's seconds."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", COLD_START], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         check=True).stdout.split()
+    wall = time.time() - t0
+    torch_s, port_s, cuda_s = (float(x) for x in out[-3:])
+    return {"wall_s": wall, "import_torch_s": torch_s, "import_port_s": port_s, "cuda_context_s": cuda_s}
+
+
+def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 9 after phase 8 (see the module docstring). Raises on any
+    wrong verdict, stored value, exit code or missing launch; fills each
+    row's launches a submit-state and a submit-account call."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import mock_chain as mc
+    from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_pub_inputs_evm
+
+    t_phase = time.time()
+    fx, indexes, dev = ctx["fx"], ctx["indexes"], ctx["dev"]
+    pubs, proofs, zkapp = ctx["accounts"]
+    B = len(fx["pubs"])
+
+    def timed(fn):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, dict(kernels.launches)
+
+    def rejected(fn, want: str) -> float:
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except ValueError as e:
+            if str(e) != want:
+                raise RuntimeError(f"rejected with {str(e)!r}, expected {want!r}") from e
+            return (time.perf_counter() - t0) * 1e3
+        raise RuntimeError(f"accepted, expected {want!r}")
+
+    # ---- submit-state through the SDK, each proof on fresh nodes ----
+    state_ms, repeat_ms, forged_ms, state_counts, state_stages = [], [], [], [], []
+    with SleepCount() as sleeps:
+        for b in range(B):
+            eth_node, mina_node = bridge_nodes(fx, b)
+            sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+            tip_state = fx["proofs"][b].bridge_tip_state
+            with StageClock(stage_sites("state")) as clock:
+                ok, ms, counts = timed(lambda: sdk.update_bridge_chain(tip_state))
+            if ok is not True or eth_node.state.state_hashes != fx["pubs"][b].candidate_chain_state_hashes:
+                raise RuntimeError(f"proof {b}: update_bridge_chain gave {ok} and stored another chain")
+            missing = [k for k in STATE_PATH if counts[k] == 0]
+            if missing:
+                raise RuntimeError(f"proof {b}: kernels never launched in submit-state: {missing}")
+            state_ms.append(ms)
+            state_counts.append(counts)
+            state_stages.append(dict(clock.s, rest=ms / 1e3 - sum(clock.s.values())))
+            again, ms, _ = timed(lambda: sdk.update_bridge_chain(tip_state))
+            if again is not False or eth_node.nonces != 2:
+                raise RuntimeError(f"proof {b}: the repeat call gave {again} ({eth_node.nonces} transactions)")
+            repeat_ms.append(ms)
+            eth_node, mina_node = bridge_nodes(fx, b, tip_of=(b + 1) % B)
+            before = list(eth_node.state.state_hashes)
+            forged_ms.append(rejected(lambda: bridge_sdk(eth_node, mina_node, indexes, dev).update_bridge_chain(tip_state),
+                                      STATE_REJECT))
+            if eth_node.state.state_hashes != before or eth_node.nonces or eth_node.registry.roots:
+                raise RuntimeError(f"proof {b}: the forged tip changed the contract")
+        log(f"submit-state x {B}: {np.median(state_ms):.1f} ms median ({min(state_ms):.1f}-{max(state_ms):.1f}); "
+            f"repeat {np.median(repeat_ms):.1f} ms; foreign tip rejected in {np.median(forged_ms):.1f} ms")
+
+        # ---- submit-account through the SDK, 64 accounts on one pair of nodes ----
+        eth_node, mina_node = bridge_nodes(fx, 0)
+        sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+        keys = add_accounts(mina_node, pubs, proofs)
+        state_hash = hex(fx["pubs"][0].candidate_chain_state_hashes[-1])
+        acc_ms, acc_counts, acc_stages = [], [], []
+        for i, key in enumerate(keys):
+            with StageClock(stage_sites("account")) as clock:
+                data, ms, counts = timed(lambda: sdk.validate_account(key, state_hash))
+            want = encode_account_pub_inputs_evm(pubs[i])
+            if data.pub_input != want or eth_node.account.validated[-1] != want or len(eth_node.account.validated) != i + 1:
+                raise RuntimeError(f"account {i} was not validated with its pub input")
+            if counts["transcript_blocks"] == 0:
+                raise RuntimeError(f"account {i}: K2 never launched")
+            acc_ms.append(ms)
+            acc_counts.append(counts)
+            acc_stages.append(dict(clock.s, rest=ms / 1e3 - sum(clock.s.values())))
+        bad_key = "B62qchipsmoketampered"
+        mina_node.add_account(bad_key, proofs[0].account, proofs[0].merkle_path, pubs[0].ledger_hash ^ 1)
+        bad_ms = rejected(lambda: sdk.validate_account(bad_key, state_hash), ACCOUNT_REJECT)
+        if len(eth_node.account.validated) != len(keys):
+            raise RuntimeError("the tampered account reached the contract")
+    groups = {}
+    for name, want in (("plain", False), ("zkapp", True)):
+        idxs = [i for i, z in enumerate(zkapp) if z == want]
+        k2 = sorted({acc_counts[i]["transcript_blocks"] for i in idxs})
+        groups[name] = {"accounts": len(idxs), "ms_median": float(np.median([acc_ms[i] for i in idxs])),
+                        "ms_min": min(acc_ms[i] for i in idxs), "ms_max": max(acc_ms[i] for i in idxs), "k2_launches": k2}
+    log(f"submit-account x {len(keys)}: {np.median(acc_ms):.1f} ms median; plain {groups['plain']['ms_median']:.1f}, "
+        f"zkApp {groups['zkapp']['ms_median']:.1f}; tampered ledger hash rejected in {bad_ms:.1f} ms; sleeps {sleeps.n}")
+
+    # ---- the recorded calls' K2 calls are one call's launches ----
+    for call, counts in (("sdk_state_call", state_counts[0]), ("sdk_account_call", acc_counts[0])):
+        recorded = sum(ctx["recs"][call].calls["transcript_blocks"].values())
+        if recorded != counts["transcript_blocks"]:
+            raise RuntimeError(f"K2: {recorded} calls in the recorded {call}, {counts['transcript_blocks']} counted")
+    if any(c != state_counts[0] for c in state_counts):
+        raise RuntimeError("submit-state calls launched different kernel counts")
+
+    # ---- device busy time of one call of each kind ----
+    eth_node, mina_node = bridge_nodes(fx, 0)
+    sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+    [key] = add_accounts(mina_node, pubs[:1], proofs[:1])
+    profile = {"submit_state": profiled(lambda: sdk.update_bridge_chain(fx["proofs"][0].bridge_tip_state)),
+               "submit_account": profiled(lambda: sdk.validate_account(key, state_hash))}
+    if eth_node.state.state_hashes != fx["pubs"][0].candidate_chain_state_hashes or len(eth_node.account.validated) != 1:
+        raise RuntimeError("the profiled calls did not settle")
+    log(f"profiled: {profile}")
+
+    # ---- the CLI, as an operator runs it, against the nodes over HTTP ----
+    cli_runs = {}
+    eth_node, mina_node = bridge_nodes(fx, 0)
+    [key] = add_accounts(mina_node, pubs[:1], proofs[:1])
+    with mc.serve(eth_node) as eth_url, mc.serve(mina_node) as mina_url:
+        cli_runs["submit_state"] = run_cli(["submit-state", "--devnet"], eth_url, mina_url, eth_node, "submit_state")
+        stored = list(eth_node.state.state_hashes)
+        cli_runs["submit_account"] = run_cli(["submit-account", key, state_hash, "--devnet"], eth_url, mina_url,
+                                             eth_node, "submit_account")
+    forged_eth, forged_mina = bridge_nodes(fx, 0, tip_of=1)
+    with mc.serve(forged_eth) as eth_url, mc.serve(forged_mina) as mina_url:
+        cli_runs["submit_state_foreign_tip"] = run_cli(["submit-state", "--devnet"], eth_url, mina_url, forged_eth,
+                                                       "submit_state_foreign_tip")
+    codes = {k: rc for k, (rc, _) in cli_runs.items()}
+    if codes != {"submit_state": 0, "submit_account": 0, "submit_state_foreign_tip": 1}:
+        raise RuntimeError(f"CLI exit codes {codes} (chiprun_out/cli_*.txt)")
+    if stored != fx["pubs"][0].candidate_chain_state_hashes or eth_node.account.validated != [
+            encode_account_pub_inputs_evm(pubs[0])]:
+        raise RuntimeError("the CLI's calls did not settle on the contracts")
+    if forged_eth.state.state_hashes[-1] != fx["pubs"][0].bridge_tip_state_hash or forged_eth.nonces:
+        raise RuntimeError("the CLI's foreign-tip call changed the contract")
+    log(f"CLI: {cli_runs}")
+    cold = cold_start()
+    log(f"a fresh process: {cold}")
+
+    for row in rows:
+        row["launches_per_submit_state"] = state_counts[0][row["name"]]
+        row["launches_per_submit_account"] = {g: sorted({acc_counts[i][row["name"]] for i, z in enumerate(zkapp) if z == w})
+                                              for g, w in (("plain", False), ("zkapp", True))}
+        if row["name"] == "transcript_blocks":
+            row["service"]["sdk_state_call"]["launches"] = state_counts[0]["transcript_blocks"]
+            row["service"]["sdk_account_call"]["launches"] = acc_counts[0]["transcript_blocks"]
+    median_stages = lambda stages: {k: float(np.median([s[k] for s in stages])) * 1e3 for k in stages[0]}
+    return {
+        "fixture": str(bfx.POS_FIXTURE.relative_to(ROOT)), "wrap_log_n": indexes[0].log_n, "step_log_n": indexes[1].log_n,
+        "submit_state": {"calls": B, "ms_median": float(np.median(state_ms)), "ms": state_ms,
+                         "stages_ms_median": median_stages(state_stages), "launches": state_counts[0],
+                         "repeat_ms_median": float(np.median(repeat_ms)), "foreign_tip_ms_median": float(np.median(forged_ms)),
+                         "foreign_tip_reason": STATE_REJECT, "tips_batch": 2},
+        "submit_account": {"calls": len(keys), "depth": len(proofs[0].merkle_path), "ms_median": float(np.median(acc_ms)),
+                           "groups": groups, "stages_ms_median": median_stages(acc_stages),
+                           "launches": {g: next(acc_counts[i] for i, z in enumerate(zkapp) if z == w)
+                                        for g, w in (("plain", False), ("zkapp", True))},
+                           "tampered_ms": bad_ms, "tampered_reason": ACCOUNT_REJECT},
+        "sleeps_in_timed_calls": sleeps.n,
+        "profile": profile,
+        "cli": {k: {"exit": rc, "wall_s": wall} for k, (rc, wall) in cli_runs.items()},
+        "cold_start_s": cold,
+        "inputs_s": ctx["inputs_s"],
+        "phase_s": time.time() - t_phase,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1261,11 +1669,12 @@ def main() -> int:
     # ---- 7 and 8, first part: the tips, the service's inputs, recorded calls ----
     tips_ctx = tips_inputs(args.seed, dev)
     service_ctx = service_inputs(args.seed, dev)
+    bridge_ctx = bridge_inputs(args.seed, dev)
 
     # ---- 5. kernels vs plain versions ----
     msm_scan = next(iter(msm_rec.inputs["padd_mixed_select2"].values()))
     rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan, tips_ctx["rec"],
-                         service_ctx["recs"])
+                         service_ctx["recs"] | bridge_ctx["recs"])
 
     # ---- 6. the main path, counted ----
     kernels.reset_launches()
@@ -1301,11 +1710,15 @@ def main() -> int:
     # ---- 8. the verifier service, counted ----
     report["service"] = service = service_phase(service_ctx, rows)
 
+    # ---- 9. the operator's path: the SDK, then the CLI ----
+    report["bridge"] = bridge = bridge_phase(bridge_ctx, rows)
+
     report["kernels"] = rows
     report["total_s"] = time.time() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"pickles": tips}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"bridge": bridge}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,6 +196,21 @@ def _ledger_roots(fields: list[list[int]], paths: list[list], dev: torch.device)
     return roots
 
 
+def full_state_hashes(states: list[dict], dev: torch.device) -> list[int]:
+    """`proof_model.host_full_state_hash` of each decoded protocol state,
+    on `dev`: the bodies of each field count as one `hash_fixed` batch (one
+    K2 launch on the card; a chain's states share one count), then every
+    (previous state hash, body hash) pair as one."""
+    fields = [pm.state_body_fields(s) for s in states]
+    groups: dict[int, list[int]] = {}
+    for i, f in enumerate(fields):
+        groups.setdefault(len(f), []).append(i)
+    body_hashes = torch.empty((len(states), NLIMBS), dtype=torch.int64, device=dev)
+    for idxs in groups.values():
+        body_hashes[idxs] = device_hash_with_prefix(PREFIX_PROTO_STATE_BODY, _limbs([fields[i] for i in idxs], dev))
+    return _ints(device_state_hashes(_limbs([[s["previous_state_hash"] for s in states]], dev)[0], body_hashes))
+
+
 def verify_proof_of_state(
     pub: pm.MinaStatePubInputs,
     proof: pm.MinaStateProof,
@@ -267,18 +282,10 @@ def _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, 
             if any(fl != flen for fl in fls):
                 results[b] = StateVerificationResult(False, "inconsistent body field count")
                 decoded[b] = None
-    all_fields, prevs = [], []
-    for dec in decoded:
-        if dec is None:
-            continue
-        states, tip = dec
-        for s in states + [tip]:
-            all_fields.append(pm.state_body_fields(s))
-            prevs.append(s["previous_state_hash"])
-    if all_fields:
+    all_states = [s for dec in decoded if dec is not None for s in dec[0] + [dec[1]]]
+    if all_states:
         with METRICS.timer("states.hash"):
-            body_hashes = device_hash_with_prefix(PREFIX_PROTO_STATE_BODY, _limbs(all_fields, dev))
-            hashes = _ints(device_state_hashes(_limbs([prevs], dev)[0], body_hashes))
+            hashes = full_state_hashes(all_states, dev)
 
     # per-proof host checks (pub inputs, linkage, consensus)
     with METRICS.timer("states.checks"):

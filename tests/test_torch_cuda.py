@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K7, and the MSM's one-launch phases of K3
 and K5) against their plain PyTorch versions on the card, the Pickles
-tips verify on the committed b2 fixture, and the verifier service's
-Proof-of-Account and Proof-of-State batches. Exact: equal canonical limbs.
+tips verify on the committed b2 fixture, the verifier service's
+Proof-of-Account and Proof-of-State batches, and the operator's path (the
+SDK against the port's mock nodes). Exact: equal canonical limbs.
 Imports only the port, so it runs
 where JAX is not installed:
 
@@ -300,3 +301,42 @@ def test_states_service(dev):
     tips[1] = dataclasses.replace(tips[1], wrap=dataclasses.replace(wrap, opening=opening))
     got = vs.verify_states_batch(pubs, proofs, pv.DeviceTips.from_host(tips, dev), rw, dindex, step_dindex, "cuda")
     assert [(r.ok, r.reason) for r in got] == [(True, ""), (False, "tip proof invalid")]
+
+
+def test_operator_path(dev):
+    """The SDK on the card against the port's mock nodes (cli.make_sdk, the
+    CLI's wiring): fixture proof 0's chain is bridged through the toy tips
+    verify and stored, a repeat returns False, and a zkApp and a plain
+    account at depth 35 are validated with their pub inputs."""
+    from mina_bridge_tpu_torch import cli
+    from mina_bridge_tpu_torch.bridge import eth, mina_graphql, merkle
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import mina_types as mt
+    from mina_bridge_tpu_torch.bridge import mock_chain as mc
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
+    from mina_bridge_tpu_torch.bridge.pickles_wire import TIP_PROOF
+    from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_pub_inputs_evm, encode_account_sol
+    from mina_bridge_tpu_torch.utils.constants import ANVIL_CHAIN_ID, ANVIL_PRIVATE_KEY
+
+    fx = bfx.load_pos_fixture()
+    pub, proof = fx["pubs"][0], fx["proofs"][0]
+    eth_node = mc.MockEthNode(pub.bridge_tip_state_hash)
+    mina_node = mc.MockMinaNode([proof.bridge_tip_state] + proof.candidate_chain_states,
+                                TIP_PROOF.encode(proof.candidate_tip_proof),
+                                [pub.bridge_tip_state_hash] + pub.candidate_chain_state_hashes)
+    accounts, paths = bfx.make_account_batch(10, 2)
+    want = []
+    for i, (a, path) in enumerate(zip(accounts, paths)):
+        root = merkle.host_merkle_root(pm.host_account_hash(a), [(s, h[0]) for s, h in path])
+        mina_node.add_account(f"B62q{i}", mt.ACCOUNT.encode(a), path, root)
+        want.append(encode_account_pub_inputs_evm(pm.MinaAccountPubInputs(ledger_hash=root, encoded_account=encode_account_sol(a))))
+    client = eth.EthClient(eth_node, ANVIL_CHAIN_ID, eth.Wallet(ANVIL_PRIVATE_KEY))
+    sdk = cli.make_sdk(client, mina_graphql.MinaClient(mina_node), eth_node.state_contract_addr,
+                       eth_node.account_contract_addr, cli.verifier_indexes("cuda"), "cuda")
+    assert sdk.update_bridge_chain(proof.bridge_tip_state) is True
+    assert eth_node.state.state_hashes == pub.candidate_chain_state_hashes
+    assert sdk.update_bridge_chain(proof.bridge_tip_state) is False
+    for i in range(2):
+        data = sdk.validate_account(f"B62q{i}", hex(pub.candidate_chain_state_hashes[-1]))
+        assert data.pub_input == want[i] == eth_node.account.validated[-1]
+    assert len(eth_node.account.validated) == 2 and len(eth_node.registry.roots) == 3
