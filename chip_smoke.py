@@ -93,7 +93,25 @@ Phases (any failure exits non-zero and prints no result):
      (the in-process mock nodes' work a stage of its own), launches per
      call, sleeps counted in the timed calls, the profiles, the CLI's exit
      codes and walls;
- 10. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+ 10. the multi-rank layer (parallel/dryrun.py, each rank a spawned process
+     that reads its inputs from build/parallel/): (a) world size 1 over
+     NCCL: the 2^16 MSM through ops/msm.py::msm_sharded over a pt of 1 and
+     unsharded on rank 0, both equal to phase 4's pmsm.msm, and the verify
+     of phase 2's batch over a dp of 1, which accepts, while the batch with
+     phase 6's tamper (proof 0) and one with the same tamper in the last
+     proof reject; (b) two ranks on the one card over gloo: the MSM over a
+     pt of 2 (2^15 points a rank, K3-K6 launched in each rank) and the
+     verify over a dp of 2 (B / 2 a rank), the same verdicts; (c) one
+     card a rank over NCCL where there are two cards, else a line that
+     says it did not run. Each rank's verify and MSM times and launches.
+     The native keccak (native/) byte-equal to the pure-Python one on
+     seeded inputs and the 136-byte rate edges (it is asserted built
+     before phase 8, whose finalize_batch, as phase 9's, is also timed on
+     the pure-Python keccak over the same proofs). The NTT (ops/ntt.py) at
+     n = 2^16 on the card equal to the host fft, limbs exact, and its
+     inverse round trip; a batch of 4 at n = 2^12. A `{"parallel": ...}`
+     line with the phase's own wall time;
+ 11. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -161,6 +179,7 @@ STATE_REJECT = "state proof rejected: tip proof binds wrong hash"
 ACCOUNT_REJECT = "account proof rejected: merkle root != ledger hash"
 STATE_PATH = ("pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan",
               "padd_mixed_select2")
+MSM_PATH = STATE_PATH[2:]  # K3-K6
 
 
 def log(*a):
@@ -1190,9 +1209,13 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
 
     # ---- the batch commitment ----
     n_pending = len(svc.pending)
+    pending = list(svc.pending)
     t0 = time.time()
     data = svc.finalize_batch()
     finalize_s = time.time() - t0
+    py_ms, py_root = finalize_ms(pending, pure_python=True)
+    if py_root != data[0].batch_merkle_root:
+        raise RuntimeError("the pure-Python keccak commits the batch to another root")
     t0 = time.time()
     for d in data:
         leaf = keccak256(d.proof_commitment + d.pub_input_commitment + d.proving_system_aux_commitment)
@@ -1201,11 +1224,62 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
     inclusion_s = time.time() - t0
     if n_pending != len(pubs) + 2 * B - len(POS_TAMPERS) or len({d.batch_merkle_root for d in data}) != 1:
         raise RuntimeError(f"the commitment holds {n_pending} proofs")
-    commitment = {"proofs": len(data), "finalize_ms": finalize_s * 1e3, "inclusion_check_ms": inclusion_s * 1e3,
-                  "depth": len(data[0].batch_inclusion_proof), "root": data[0].batch_merkle_root.hex()}
-    log(f"commitment over {len(data)} proofs: finalize {finalize_s * 1e3:.0f} ms, inclusion proofs checked in "
+    commitment = {"proofs": len(data), "finalize_ms": finalize_s * 1e3, "finalize_pure_python_ms": py_ms,
+                  "inclusion_check_ms": inclusion_s * 1e3, "depth": len(data[0].batch_inclusion_proof),
+                  "root": data[0].batch_merkle_root.hex()}
+    log(f"commitment over {len(data)} proofs: finalize {finalize_s * 1e3:.1f} ms with the native keccak "
+        f"({py_ms:.1f} ms with the pure-Python one, the same root), inclusion proofs checked in "
         f"{inclusion_s * 1e3:.0f} ms")
     return {"accounts": accounts, "states": states, "commitment": commitment, "inputs_s": ctx["inputs_s"]}
+
+
+def finalize_ms(pending: list, pure_python: bool) -> tuple[float, bytes]:
+    """finalize_batch over a copy of a pending batch, through the keccak
+    dispatch or the pure-Python keccak: (host ms, root)."""
+    from mina_bridge_tpu_torch.bridge import aligned
+    from mina_bridge_tpu_torch.bridge.keccak import keccak256_py
+
+    svc = aligned.CudaVerifierService(None, None)
+    svc.pending = list(pending)
+    orig = aligned.keccak256
+    if pure_python:
+        aligned.keccak256 = keccak256_py
+    try:
+        t0 = time.perf_counter()
+        data = svc.finalize_batch()
+        return (time.perf_counter() - t0) * 1e3, data[0].batch_merkle_root
+    finally:
+        aligned.keccak256 = orig
+
+
+class PendingSpy:
+    """Keeps a copy of the pending batch of every finalize_batch call while
+    the block runs."""
+
+    def __enter__(self):
+        from mina_bridge_tpu_torch.bridge import aligned
+
+        self.batches, self.cls = [], aligned.CudaVerifierService
+        self.orig = self.cls.finalize_batch
+
+        def spied(svc, _orig=self.orig):
+            self.batches.append(list(svc.pending))
+            return _orig(svc)
+
+        self.cls.finalize_batch = spied
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.finalize_batch = self.orig
+
+
+def keccak_timing(pending: list) -> dict:
+    """finalize_batch over a spied batch, native then pure Python."""
+    native_ms, root = finalize_ms(pending, pure_python=False)
+    py_ms, py_root = finalize_ms(pending, pure_python=True)
+    if py_root != root:
+        raise RuntimeError("the pure-Python keccak commits the batch to another root")
+    return {"proofs": len(pending), "finalize_native_ms": native_ms, "finalize_pure_python_ms": py_ms}
 
 
 def bridge_nodes(fx: dict, b: int, tip_of: int | None = None):
@@ -1454,7 +1528,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
 
     # ---- submit-state through the SDK, each proof on fresh nodes ----
     state_ms, repeat_ms, forged_ms, state_counts, state_stages = [], [], [], [], []
-    with SleepCount() as sleeps:
+    with SleepCount() as sleeps, PendingSpy() as spy:
         for b in range(B):
             eth_node, mina_node = bridge_nodes(fx, b)
             sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
@@ -1483,6 +1557,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
             f"repeat {np.median(repeat_ms):.1f} ms; foreign tip rejected in {np.median(forged_ms):.1f} ms")
 
         # ---- submit-account through the SDK, 64 accounts on one pair of nodes ----
+        first_account = len(spy.batches)
         eth_node, mina_node = bridge_nodes(fx, 0)
         sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
         keys = add_accounts(mina_node, pubs, proofs)
@@ -1504,6 +1579,8 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         bad_ms = rejected(lambda: sdk.validate_account(bad_key, state_hash), ACCOUNT_REJECT)
         if len(eth_node.account.validated) != len(keys):
             raise RuntimeError("the tampered account reached the contract")
+    keccak = {"submit_state": keccak_timing(spy.batches[0]), "submit_account": keccak_timing(spy.batches[first_account])}
+    log(f"finalize_batch of one call, native vs pure-Python keccak: {keccak}")
     groups = {}
     for name, want in (("plain", False), ("zkapp", True)):
         idxs = [i for i, z in enumerate(zkapp) if z == want]
@@ -1575,6 +1652,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
                            "launches": {g: next(acc_counts[i] for i, z in enumerate(zkapp) if z == w)
                                         for g, w in (("plain", False), ("zkapp", True))},
                            "tampered_ms": bad_ms, "tampered_reason": ACCOUNT_REJECT},
+        "keccak": keccak,
         "sleeps_in_timed_calls": sleeps.n,
         "profile": profile,
         "cli": {k: {"exit": rc, "wall_s": wall} for k, (rc, wall) in cli_runs.items()},
@@ -1582,6 +1660,126 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         "inputs_s": ctx["inputs_s"],
         "phase_s": time.time() - t_phase,
     }
+
+
+def keccak_checks(seed: int) -> dict:
+    """The native keccak is built and byte-equal to the pure-Python one on
+    seeded inputs and the 136-byte rate edges."""
+    from mina_bridge_tpu_torch import native
+    from mina_bridge_tpu_torch.bridge.keccak import keccak256_py
+
+    if not native.available():
+        raise RuntimeError("the native keccak did not build")
+    rng = np.random.default_rng(seed)
+    cases = [b"", b"abc" * 100] + [rng.bytes(int(n)) for n in rng.integers(0, 4096, 64)]
+    cases += [bytes(n) for n in (135, 136, 137, 271, 272, 273)]
+    want = [keccak256_py(x) for x in cases]
+    if [native.keccak256(x) for x in cases] != want or native.keccak256_batch(cases) != want:
+        raise RuntimeError("the native keccak disagrees with the pure-Python one")
+    return {"cases": len(cases), "library": native._target().name}
+
+
+def ntt_checks(seed: int, dev) -> dict:
+    """ops/ntt.py on the card at n = 2^16 (Pallas's scalar field) against
+    the host fft, limbs exact, and its inverse round trip; a batch of 4 at
+    n = 2^12; the device time of each."""
+    import torch
+
+    from mina_bridge_tpu_torch.curves.host import PALLAS
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.kimchi.domain import Domain, fft
+    from mina_bridge_tpu_torch.ops.ntt import ntt
+
+    fs = PALLAS.scalar
+    rng = np.random.default_rng(seed)
+
+    def ints(n):
+        return [int.from_bytes(rng.bytes(32), "little") % fs.p for _ in range(n)]
+
+    def canon(x):
+        return ffl.canon(fs, x).cpu().numpy()
+
+    out = {}
+    for log_n, batch in ((16, None), (12, 4)):
+        dom = Domain(fs, log_n)
+        coeffs = [ints(dom.n) for _ in range(batch or 1)]
+        x = torch.as_tensor(np.stack([ffl.ints_to_limbs(c, ffl.REP_LIMBS) for c in coeffs]), device=dev)
+        x = x if batch else x[0]
+        ev = ntt(dom, x)
+        want = np.stack([ffl.ints_to_limbs(fft(dom, c)) for c in coeffs])
+        if not np.array_equal(canon(ev).reshape(want.shape), want):
+            raise RuntimeError(f"the NTT at n = 2^{log_n} differs from the host fft")
+        if not np.array_equal(canon(ntt(dom, ev, inverse=True)), canon(x)):
+            raise RuntimeError(f"the inverse NTT at n = 2^{log_n} does not round-trip")
+        out[f"n2e{log_n}" + (f"_b{batch}" if batch else "")] = {
+            "ms": cuda_ms(lambda: ntt(dom, x), 3), "inverse_ms": cuda_ms(lambda: ntt(dom, ev, inverse=True), 3)}
+    return out
+
+
+def parallel_phase(ctx: dict) -> dict:
+    """Phase 10 (see the module docstring): the multi-rank dry run
+    (parallel/dryrun.py) at world 1 over NCCL and at two ranks on the one
+    card over gloo (and one card a rank over NCCL where there are two),
+    the native keccak and the NTT. Raises on any failed check."""
+    import torch
+
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.parallel import dryrun
+
+    t_phase = time.time()
+    fs = ctx["curve"].scalar
+    dindex, dproofs, rw, hint = ctx["verify"]
+    scalars, points, want = ctx["msm"]
+    B = dproofs.z1.shape[0]
+    batches = {"honest": (dproofs, rw, hint)}
+    for name, b in (("tamper_first", 0), ("tamper_last", B - 1)):  # in rank 0's and the last rank's half
+        bad = dataclasses.replace(dproofs, evals=dproofs.evals.clone())
+        e = ffl.to_int(fs, bad.evals[b, 5, 0])
+        bad.evals[b, 5, 0] = torch.as_tensor(int_to_limbs((e + 1) % fs.p, NLIMBS), device=bad.evals.device)
+        batches[name] = (bad, rw, hint)
+    workdir = ROOT / "build" / "parallel"
+    t0 = time.time()
+    dryrun.write_inputs(workdir, index=dindex, batches=batches, msm=(ctx["curve"], scalars, points))
+    out = {"inputs_s": time.time() - t0}
+    want_verdicts = {"honest": True, "tamper_first": False, "tamper_last": False}
+    runs = [("world1_nccl", 1, "nccl", dryrun.STAGES), ("two_ranks_one_card_gloo", 2, "gloo", ("verify", "msm"))]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("two_cards_nccl", 2, "nccl", ("verify", "msm")))
+    else:
+        log(f"phase 10 (c), one card a rank over NCCL: not run ({torch.cuda.device_count()} card)")
+    for name, world, backend, stages in runs:
+        t0 = time.time()
+        res = dryrun.dryrun_multichip(workdir, world, device="cuda", backend=backend, stages=stages, reps=3)
+        wall = time.time() - t0
+        if res["verdicts"] != want_verdicts:
+            raise RuntimeError(f"{name}: verdicts {res['verdicts']}, expected {want_verdicts}")
+        if res["msm_point"] != want or ("single" in stages and res["single_point"] != want):
+            raise RuntimeError(f"{name}: the sharded MSM differs from pmsm.msm over all points")
+        for r in res["ranks"]:
+            missing = [k for k in STATE_PATH if r["verify"]["honest"]["launches"][k] == 0]
+            missing += [k for k in MSM_PATH if r["msm"]["launches"][k] == 0]
+            if missing:
+                raise RuntimeError(f"{name}: rank {r['rank']} never launched {missing}")
+        out[name] = {
+            "world": world, "backend": backend, "wall_s": wall,
+            "ranks": [{
+                "rank": r["rank"], "device": r["device"], "rank_s": r["rank_s"],
+                "verify_B": r["verify"]["honest"]["B"], "verify_ms": r["verify"]["honest"]["ms"],
+                "verify_launches": r["verify"]["honest"]["launches"],
+                "msm_points": r["msm"]["per_rank"], "msm_ms": r["msm"]["ms"], "msm_launches": r["msm"]["launches"],
+                **({"single_msm_ms": r["single"]["ms"]} if "single" in r else {}),
+            } for r in res["ranks"]],
+        }
+        log(f"phase 10 {name}: verdicts {res['verdicts']}, MSM equal, {wall:.1f} s; "
+            + "; ".join(f"rank {r['rank']}: verify {np.median(r['verify_ms']):.1f} ms (B = {r['verify_B']}), "
+                        f"MSM {np.median(r['msm_ms']):.1f} ms" for r in out[name]["ranks"]))
+    out["keccak"] = keccak_checks(ctx["seed"])
+    out["ntt"] = ntt_checks(ctx["seed"], ctx["dev"])
+    log(f"phase 10: native keccak {out['keccak']}; NTT {out['ntt']}")
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 10 took {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1708,10 +1906,19 @@ def main() -> int:
     report["pickles"] = tips = tips_phase(tips_ctx, rows)
 
     # ---- 8. the verifier service, counted ----
+    from mina_bridge_tpu_torch import native
+
+    if not native.available():  # finalize_batch must not time the pure-Python keccak unseen
+        raise RuntimeError("the native keccak did not build")
     report["service"] = service = service_phase(service_ctx, rows)
 
     # ---- 9. the operator's path: the SDK, then the CLI ----
     report["bridge"] = bridge = bridge_phase(bridge_ctx, rows)
+
+    # ---- 10. the multi-rank dry run, the native keccak, the NTT ----
+    report["parallel"] = parallel = parallel_phase({
+        "verify": (dindex, dproofs, rw, hint), "msm": (scalars, points, list(got[0])), "curve": PALLAS,
+        "seed": args.seed, "dev": dev})
 
     report["kernels"] = rows
     report["total_s"] = time.time() - t_start
@@ -1719,6 +1926,7 @@ def main() -> int:
     print(json.dumps({"pickles": tips}))
     print(json.dumps({"service": service}))
     print(json.dumps({"bridge": bridge}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,14 @@ from the Keccak specification; hashlib's sha3_256 uses NIST padding and
 is NOT compatible.
 
 The port's own copy of mina_bridge_tpu/bridge/keccak.py: the port imports
-nothing of the JAX package, not even its pure-Python modules.
+nothing of the JAX package, not even its pure-Python modules. As there,
+`keccak256` dispatches to the native C++ build (native/src/keccak.cpp)
+when a C++ compiler is found, and `keccak256_py` stays the oracle.
 """
 
 from __future__ import annotations
+
+from .. import native
 
 _ROT = [
     [0, 36, 3, 41, 18],
@@ -80,9 +84,11 @@ def keccak256_py(data: bytes) -> bytes:
     return out
 
 
-# The JAX package dispatches to a C++ build (mina_bridge_tpu/native); the
-# port has no native code yet, so its keccak is this pure-Python one.
-keccak256 = keccak256_py
+def keccak256(data: bytes) -> bytes:
+    """Dispatch: native C++ when available, else `keccak256_py`."""
+    if native.available():
+        return native.keccak256(data)
+    return keccak256_py(data)
 
 
 def selector(signature: str) -> bytes:

@@ -16,12 +16,13 @@ loop on the CPU. `hash_fixed` is one such call with a schedule of its own.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..fields import ffl
-from ..fields.params import FieldSpec, int_to_limbs
+from ..fields.params import LIMB_BITS, LIMB_MASK, NLIMBS, int_to_limbs
 from .poseidon_params import RATE, WIDTH, PoseidonSpec, poseidon_spec
 
 __all__ = [
@@ -35,36 +36,83 @@ __all__ = [
 ]
 
 
+def _antidiag_map(R: int, C: int) -> np.ndarray:
+    """(R * C, R + C - 1) 0/1: entry (r C + c, r + c) is 1."""
+    m = np.zeros((R * C, R + C - 1))
+    r, c = np.divmod(np.arange(R * C), C)
+    m[np.arange(R * C), r + c] = 1
+    return m
+
+
+class _Tables(NamedTuple):
+    rc: torch.Tensor  # (55, 3, 22) round constants, canonical limbs
+    split_fold: torch.Tensor  # (43 x 3 pieces, 20): the reduction's first re-spread with the fold
+    split: torch.Tensor  # (20 x 3 pieces, 22): its second re-spread
+    mds: torch.Tensor  # (3 x 22, 3 x 43): the MDS products summed per output word
+    shifts: torch.Tensor  # (3,) the shifts of the 13-bit pieces
+
+
 @functools.cache
-def _tables(ps: PoseidonSpec, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(55, 3, 22) round constants and (3, 3, 22) MDS, canonical limbs."""
-    L = ffl.REP_LIMBS
+def _tables(ps: PoseidonSpec, device: torch.device) -> _Tables:
+    """The round constants and a round's linear steps as float64 matrices
+    (see `_reduce`)."""
+    L, W = ffl.REP_LIMBS, WIDTH
     rc = np.stack([np.stack([int_to_limbs(c, L) for c in row]) for row in ps.round_constants])
-    mds = np.stack([np.stack([int_to_limbs(c, L) for c in row]) for row in ps.mds])
-    return torch.as_tensor(rc, device=device), torch.as_tensor(mds, device=device)
+    mds = np.stack([np.stack([int_to_limbs(c, L) for c in row]) for row in ps.mds]).astype(np.float64)
+    fold = np.concatenate([np.eye(NLIMBS), ffl._fold_rows(ps.field, 2 * L + 1 - NLIMBS)])
+    conv = _antidiag_map(L, L).reshape(L, L, -1)
+    m_mds = np.zeros((W, L, W, 2 * L - 1))
+    for i in range(W):
+        for j in range(W):
+            m_mds[j, :, i] = (mds[i, j][:, None, None] * conv).sum(0)
+    f64 = lambda m: torch.as_tensor(m, dtype=torch.float64, device=device)
+    return _Tables(
+        rc=torch.as_tensor(rc, device=device),
+        split_fold=f64(_antidiag_map(2 * L - 1, 3) @ fold),
+        split=f64(_antidiag_map(NLIMBS, 3)),
+        mds=f64(m_mds.reshape(W * L, -1)),
+        shifts=torch.arange(0, 3 * LIMB_BITS, LIMB_BITS, device=device),
+    )
 
 
-def _sbox(field: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """x^7 = x^4 * x^3, with x^4 and x^3 in one batched product."""
-    x2 = ffl.square(field, x)
-    x4_x3 = ffl.mul(field, torch.stack([x2, x2]), torch.stack([x2, x]))
-    return ffl.mul(field, x4_x3[0], x4_x3[1])
+def _pieces(t: _Tables, x: torch.Tensor) -> torch.Tensor:
+    """(..., n) limbs < 2^39 -> (..., 3 n) float64 13-bit pieces, limb-major."""
+    return ((x.unsqueeze(-1) >> t.shifts) & LIMB_MASK).flatten(-2).to(torch.float64)
+
+
+def _reduce(t: _Tables, x: torch.Tensor) -> torch.Tensor:
+    """ffl._reduce, the same limbs: (..., 43) limbs < 2^39 -> REP, with the
+    linear steps (re-spread and fold) as float64 matrix products. Every
+    product and partial sum in them is an integer below 2^40, so float64
+    holds each exactly."""
+    y = (_pieces(t, x) @ t.split_fold).to(ffl.DTYPE)
+    return (_pieces(t, y) @ t.split).to(ffl.DTYPE)
+
+
+def _mul(t: _Tables, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """ffl.mul on REP limbs, the same limbs."""
+    return _reduce(t, ffl.conv(a, b))
 
 
 def permute(ps: PoseidonSpec, state: torch.Tensor) -> torch.Tensor:
     """The full permutation on (..., 3, 22) state.
 
-    The MDS products and the round constant are summed as raw limb
-    convolutions and reduced once per round (the same value mod p as the
-    reference's mul + add tree)."""
-    field = ps.field
-    rc, mds = _tables(ps, state.device)
+    Each round is the x^7 sbox (x^2, then x^4 and x^3 in one batched
+    product, then x^7), the MDS products summed as raw limb convolutions
+    (one float64 matrix product, sums < 2^36) plus the round constant,
+    reduced once (the same value mod p as the reference's mul + add
+    tree). The reductions are `_reduce`'s: the same limbs as ffl's ops in
+    fewer torch ops."""
+    t = _tables(ps, state.device)
+    L = ffl.REP_LIMBS
     st = state
-    for r in range(rc.shape[0]):
-        sb = _sbox(field, st)
-        raw = ffl.conv(mds, sb.unsqueeze(-3)).sum(dim=-2)  # (..., 3, 43)
-        raw[..., : ffl.REP_LIMBS] += rc[r]
-        st = ffl._reduce(field, raw)
+    for r in range(t.rc.shape[0]):
+        x2 = _mul(t, st, st)
+        x4_x3 = _mul(t, torch.stack([x2, x2]), torch.stack([x2, st]))
+        x7 = _mul(t, x4_x3[0], x4_x3[1])
+        raw = (x7.flatten(-2).to(torch.float64) @ t.mds).to(ffl.DTYPE).unflatten(-1, (WIDTH, 2 * L - 1))
+        raw[..., :L] += t.rc[r]
+        st = _reduce(t, raw)
     return st
 
 

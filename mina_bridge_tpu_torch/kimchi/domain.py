@@ -1,8 +1,9 @@
 """Radix-2 evaluation domains over the Pasta scalar fields (host ints).
 
 Counterpart of mina_bridge_tpu/kimchi/domain.py: the domain constants
-(omega, its inverse, 1/n) and the inverse FFT the verifier index uses to
-build Lagrange-basis coefficients.
+(omega, its inverse, 1/n), the inverse FFT the verifier index uses to
+build Lagrange-basis coefficients, and the forward FFT (the host oracle of
+ops/ntt.py).
 """
 
 from __future__ import annotations
@@ -70,6 +71,13 @@ def _ntt(a: list[int], root: int, p: int) -> list[int]:
                 a[start + i + half] = (u - v) % p
         length <<= 1
     return a
+
+
+def fft(dom: Domain, coeffs: list[int]) -> list[int]:
+    """Coefficients -> evaluations on H (padded/truncated to n)."""
+    p = dom.field.p
+    a = [c % p for c in coeffs[: dom.n]] + [0] * max(0, dom.n - len(coeffs))
+    return _ntt(a, dom.omega, p)
 
 
 def ifft(dom: Domain, evals: list[int]) -> list[int]:

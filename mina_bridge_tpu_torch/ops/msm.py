@@ -19,20 +19,25 @@ path's 159.6 s, on one thread of an Intel Xeon (4.3 s against 43.8 s at
 1,300 points; scripts/torch_cpu_msm.py, PERF.md §6).
 
 This is the path the port takes on the CPU (and the plain version that
-`ops/pmsm.py`, the card's path, is checked against).
+`ops/pmsm.py`, the card's path, is checked against). `msm_sharded`, the
+MSM with its points split over a mesh axis, runs each rank's shard
+through pmsm on the card and through this module on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..curves import curve as cv
 from ..curves.host import CurveSpec
 from ..fields import ffl
 from ..fields.params import LIMB_BITS, NLIMBS
+from ..parallel import mesh as pm
+from . import pmsm
 
-__all__ = ["msm", "msm_windowed", "SMALL_MSM_MAX"]
+__all__ = ["msm", "msm_windowed", "msm_sharded", "SMALL_MSM_MAX"]
 
 SMALL_MSM_MAX = 4096
 _WIN = 4  # window bits of the small-N path (divides 260)
@@ -156,4 +161,27 @@ def msm_windowed(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> t
         for _ in range(LIMB_BITS):
             acc = cv.double(c, acc)
         acc = cv.add(c, acc, window_sums[w])
+    return acc
+
+
+def msm_sharded(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, mesh, axis: str = pm.AXIS_POINTS) -> torch.Tensor:
+    """MSM with the point/scalar axis sharded over `mesh[axis]`.
+
+    Takes the global (N, 20) scalars and (N, 3, 22) points, N a multiple
+    of the axis size D. Each rank runs its own contiguous shard through
+    pmsm (K3-K6) on the card or `msm` on the CPU, the D partial sums are
+    all-gathered over the axis and added in rank order on every rank, so
+    every rank returns the same point (3, 22)."""
+    group = mesh.get_group(axis)
+    D = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    N = scalars.shape[0]
+    if N % D:
+        raise ValueError(f"{N} points do not split over an axis of {D} ranks")
+    s = N // D
+    route = pmsm.msm if points.device.type == "cuda" else msm
+    parts = pm.all_gather(route(c, scalars[r * s : (r + 1) * s], points[r * s : (r + 1) * s]), group)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = cv.add(c, acc, part)
     return acc

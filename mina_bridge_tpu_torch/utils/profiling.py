@@ -1,16 +1,20 @@
-"""Per-stage timers and throughput counters.
+"""Per-stage timers, throughput counters and a profiler trace.
 
-Counterpart of `Metrics` and `METRICS` in
-mina_bridge_tpu/utils/profiling.py (the verifier service counts and times
-its batches there). The JAX package's `xla_trace` has no counterpart
-yet: scripts/torch_profile_verify.py traces the card with torch.profiler.
+Counterpart of mina_bridge_tpu/utils/profiling.py: `Metrics` and
+`METRICS` (the verifier service counts and times its batches there), and
+`trace`, the counterpart of `xla_trace`, a torch.profiler capture around
+a block written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
+import pathlib
 import time
+
+import torch
 
 log = logging.getLogger("mina_bridge_tpu_torch.metrics")
 
@@ -46,3 +50,22 @@ class Metrics:
 
 
 METRICS = Metrics()
+
+
+@contextlib.contextmanager
+def trace(outdir: str):
+    """Capture a torch.profiler trace around a block (CPU activity, and
+    CUDA activity where a card is present) and write it into `outdir` as
+    a Chrome trace, `trace.<pid>.json`. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = pathlib.Path(outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = out / f"trace.{os.getpid()}.json"
+    prof.export_chrome_trace(str(path))
+    log.info("profiler trace written to %s", path)

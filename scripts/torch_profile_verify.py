@@ -28,6 +28,8 @@ split is the service's own `METRICS` stages. Measured:
     kernel intervals), the device's idle share of the wall time, device
     time per group (the port kernels, other torch kernels) and the top
     kernels by device time.
+With --trace DIR one more timed verify runs inside
+utils/profiling.py::trace, which writes its Chrome trace into DIR.
 With --sweep-g 256,1024,... it first times, at each G (pmsm.G_DEFAULT, the
 MSM's chunks per window), the 2^16-point MSM with seeded scalars and the
 verify (host clock, each run ends in a synchronize; median of `reps`),
@@ -149,6 +151,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--sweep-g", default="", help="comma-separated chunk counts G to time the MSM and verify at")
     ap.add_argument("--service", choices=("accounts", "states"), help="profile one verifier-service batch")
+    ap.add_argument("--trace", default="", help="directory for the Chrome trace of one more timed verify")
     args = ap.parse_args()
     if args.sweep_g and (args.pickles or args.service):
         ap.error("--sweep-g times the Kimchi verify; it does not combine with --pickles or --service")
@@ -295,6 +298,15 @@ def main() -> int:
         stages = dict(st.ms)
         stages["rest (plain torch ops, host)"] = staged_ms - sum(st.ms.values())
 
+    traced_ms = None
+    if args.trace:
+        from mina_bridge_tpu_torch.utils.profiling import trace
+
+        with trace(args.trace):
+            t0 = time.perf_counter()
+            run()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -328,6 +340,7 @@ def main() -> int:
         "stages_ms": stages,
         "staged_verify_ms": staged_ms,
         "profiled_wall_ms": wall_ms,
+        "traced_verify_ms": traced_ms,
         "device_busy_ms": busy_ms if kernels else None,
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
         "device_ms_by_group": by_group,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1-K7, and the MSM's one-launch phases of K3
 and K5) against their plain PyTorch versions on the card, the Pickles
 tips verify on the committed b2 fixture, the verifier service's
-Proof-of-Account and Proof-of-State batches, and the operator's path (the
-SDK against the port's mock nodes). Exact: equal canonical limbs.
+Proof-of-Account and Proof-of-State batches, the operator's path (the
+SDK against the port's mock nodes), the NTT, and two ranks sharing the
+card over gloo (the sharded MSM). Exact: equal canonical limbs.
 Imports only the port, so it runs
 where JAX is not installed:
 
@@ -340,3 +341,40 @@ def test_operator_path(dev):
         data = sdk.validate_account(f"B62q{i}", hex(pub.candidate_chain_state_hashes[-1]))
         assert data.pub_input == want[i] == eth_node.account.validated[-1]
     assert len(eth_node.account.validated) == 2 and len(eth_node.registry.roots) == 3
+
+
+def test_ntt(dev):
+    """ops/ntt.py on the card at n = 2^12 (Pallas's scalar field): equal to
+    the host fft, limbs exact, and the inverse round-trips."""
+    from mina_bridge_tpu_torch.kimchi.domain import Domain, fft
+    from mina_bridge_tpu_torch.ops.ntt import ntt
+
+    fs = PALLAS.scalar
+    dom = Domain(fs, 12)
+    coeffs = _ints(fs.p, dom.n, 21)
+    x = ffl.from_ints(fs, coeffs, dev)
+    ev = ntt(dom, x)
+    assert ffl.to_ints(fs, ev) == fft(dom, coeffs)
+    assert ffl.to_ints(fs, ntt(dom, ev, inverse=True)) == coeffs
+
+
+def test_two_ranks_one_card_gloo(dev, tmp_path):
+    """parallel/dryrun.py with two ranks sharing the card over gloo: the
+    sharded MSM over 512 seeded points (256 a rank through K3-K6, counted
+    in each rank) equals pmsm.msm over all of them."""
+    from mina_bridge_tpu_torch.curves import curve as cv
+    from mina_bridge_tpu_torch.ops import pmsm
+    from mina_bridge_tpu_torch.parallel import dryrun
+
+    rng = np.random.default_rng(22)
+    pts = [mul(PALLAS, int(k), PALLAS.generator) for k in rng.integers(1, 1 << 62, 512)]
+    scalars = torch.as_tensor(ffl.ints_to_limbs(_ints(PALLAS.scalar.p, 512, 23)))
+    points = cv.from_affine_ints(PALLAS, pts)
+    want = list(cv.to_affine_ints(PALLAS, pmsm.msm(PALLAS, scalars.to(dev), points.to(dev)))[0])
+    dryrun.write_inputs(tmp_path, msm=(PALLAS, scalars, points))
+    out = dryrun.dryrun_multichip(tmp_path, 2, device="cuda", backend="gloo", stages=("msm",))
+    assert out["msm_point"] == want
+    for r in out["ranks"]:
+        assert r["device"] == "cuda:0" and r["msm"]["per_rank"] == 256
+        k3_k6 = ("padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan", "padd_mixed_select2")
+        assert all(r["msm"]["launches"][k] > 0 for k in k3_k6)

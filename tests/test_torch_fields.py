@@ -404,3 +404,26 @@ def test_device_selection_and_no_fallback():
             device()
     with pytest.raises(ValueError):
         chain_kernel.pow_const_rows(FQ, torch.zeros((4, 22), dtype=torch.int64, device="meta"), FQ.p - 2)
+
+
+def test_ntt_matches_jax_fft_and_ifft():
+    """ops/ntt.py at n = 16 on Pallas's scalar field: forward equals the
+    JAX package's host `fft` (and the port's), the inverse round-trips to
+    the coefficients and equals JAX `ifft`; a batch of 3 at n = 8."""
+    from mina_bridge_tpu.kimchi import domain as jdom
+    from mina_bridge_tpu_torch.kimchi.domain import Domain, fft
+    from mina_bridge_tpu_torch.ops.ntt import ntt
+
+    fs = PALLAS.scalar
+    rng = random.Random(0xC0FFEE)
+    dom, jd = Domain(fs, 4), jdom.Domain(JFQ, 4)
+    coeffs = [rng.randrange(fs.p) for _ in range(dom.n)]
+    evals = jdom.fft(jd, coeffs)
+    out = ntt(dom, ffl.from_ints(fs, coeffs))
+    assert canon_ints(fs, out) == evals == fft(dom, coeffs)
+    back = ntt(dom, out, inverse=True)
+    assert canon_ints(fs, back) == coeffs == jdom.ifft(jd, evals)
+    dom3, jd3 = Domain(fs, 3), jdom.Domain(JFQ, 3)
+    batches = [[rng.randrange(fs.p) for _ in range(dom3.n)] for _ in range(3)]
+    out = ntt(dom3, torch.stack([ffl.from_ints(fs, b) for b in batches]))
+    assert [canon_ints(fs, out[i]) for i in range(3)] == [jdom.fft(jd3, b) for b in batches]

@@ -271,3 +271,28 @@ def test_index_from_host_matches_jax(proven):
             assert ours[k] == v, k
         else:
             assert np.array_equal(ours[k].numpy(), np.asarray(v)), k
+
+
+def test_dp_sharded_verify(proven, tmp_path):
+    """parallel/dryrun.py's stage 1 over 2 gloo ranks (dp = 2, one proof a
+    rank): the ranks rebuild the port's index and proofs with `from_numpy`
+    from the files the parent writes; the honest batch is accepted, and a
+    tamper in either rank's proof (z2 in proof 0, sg in proof 1, each
+    entering only that shard's MSM) is rejected on both ranks while the
+    other rank's own shard verifies."""
+    from mina_bridge_tpu_torch.parallel import dryrun
+
+    curve, index, g, h, proofs, tidx, tpr, hint = proven
+    rw = rand_weights(curve, 2)
+    batches = {"honest": (tpr, rw, hint)}
+    for b, kind in enumerate(["z2", "sg"]):
+        pr, hi, host = _tampered(proven, kind)
+        assert not prover_host.host_verify(index, host[b], g, h)
+        batches[f"tamper{b}"] = (pr, rw, hi)
+    dryrun.write_inputs(tmp_path, index=tidx, batches=batches)
+    out = dryrun.dryrun_multichip(tmp_path, 2, device="cpu", stages=("verify",))
+    assert out["backend"] == "gloo"
+    assert out["verdicts"] == {"honest": True, "tamper0": False, "tamper1": False}
+    for rank, r in enumerate(out["ranks"]):
+        assert {k: (v["B"], v["local"]) for k, v in r["verify"].items()} == {
+            "honest": (1, True), "tamper0": (1, rank != 0), "tamper1": (1, rank != 1)}

@@ -1,7 +1,7 @@
 """The port's operator entry points on the CPU against the JAX package's:
 the Ethereum stack (RLP, secp256k1, the JSON-RPC client and contract
 bindings), base58 and Mina signatures, the env / retry / keystore /
-deployer plumbing, the Mina GraphQL client, the real MinaBaseProofStableV2
+deployer plumbing, the profiler trace, the Mina GraphQL client, the real MinaBaseProofStableV2
 layout, the mock chain, and the SDK and CLI end to end against the port's
 mock nodes (`device="cpu"`). Tolerance zero: equal ints, bytes, verdicts,
 reasons and exit codes.
@@ -606,3 +606,15 @@ def test_cli_needs_a_card(world, tmp_path, monkeypatch):
             tcli.main(["submit-state", "--devnet"])
         with pytest.raises(teth.EthError, match="KeyError"):
             teth.http_transport(eth_url)("eth_nosuchmethod", [])
+
+
+def test_profiling_trace_writes_a_chrome_trace(tmp_path):
+    """utils/profiling.py::trace, the counterpart of xla_trace: the block's
+    torch ops land in a Chrome trace in the directory."""
+    from mina_bridge_tpu_torch.utils.profiling import trace
+
+    with trace(str(tmp_path / "t")):
+        torch.arange(8).sum()
+    [path] = (tmp_path / "t").glob("trace.*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any("sum" in e.get("name", "") for e in events)
