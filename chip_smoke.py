@@ -111,7 +111,29 @@ Phases (any failure exits non-zero and prints no result):
      n = 2^16 on the card equal to the host fft, limbs exact, and its
      inverse round trip; a batch of 4 at n = 2^12. A `{"parallel": ...}`
      line with the phase's own wall time;
- 11. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+ 11. the prover (kimchi/prover_host.py, pickles prove_tip), whose first
+     part runs before phase 5: both toy setups (wrap 2^10, step 2^4) on the
+     card and toy tip 0 of fixtures/pos_2e10_s2e4_b8.json.gz proved again
+     with K1's and pmsm's inputs recorded (they join phase 5's checks).
+     After phase 10, each proof with the counters set to 0 just before it
+     and read just after: (a) make_fixture(16, 2): the index and both
+     proofs equal fixtures/kimchi_2e16_b2.json.gz document for document,
+     the verify accepts them at B = 2 and rejects phase 6's tamper; setup
+     and proof seconds, each proof's stage split and launches; K1's
+     inputs in proof 0 (the 2^16 inversions) and pmsm's in its opening
+     recorded and, after the counters were read, held against the plain
+     versions as phase 5 holds its inputs (`check_prover_inputs`); (b) the
+     other 7 toy Proof-of-States proved again (random.Random(seed) of each
+     entry, as scripts/make_pos_fixture.py made them), each equal to the
+     committed bytes, both index docs equal to the file's, the service
+     accepting all 8; (c) make_tips(17, 18, 1): tip 0 and both index docs
+     equal to fixtures/pickles_2e17_s2e18_b2.json.gz, batch_verify_tips
+     accepts; the setup, step proof, its check and wrap proof seconds;
+     K1's inputs in the tip (the 2^18 and 2^17 inversions among them)
+     held against the plain version in the same way. A
+     `{"prover": ...}` line; the kernel rows gain the prover's launches
+     per 2^16 proof and per real-scale tip;
+ 12. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -549,6 +571,26 @@ def fresh(args) -> tuple:
     return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
+def kernel_pairs() -> dict:
+    """Each kernel's wrapper and its plain version, by row name."""
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+    from mina_bridge_tpu_torch.fields import chain_kernel
+    from mina_bridge_tpu_torch.hash import transcript_kernel as tk
+
+    return {
+        "pow_const": (chain_kernel.pow_const_rows, chain_kernel.pow_const_plain),
+        "transcript_blocks": (tk.transcript_blocks, tk.transcript_blocks_plain),
+        "padd": (pk.padd, pk.padd_plain),
+        "padd_weight_sum": (pk.padd_weight_sum, pk.padd_weight_sum_plain),
+        "padd_fixup": (pk.padd_fixup, pk.padd_fixup_plain),
+        "pdouble": (pk.pdouble, pk.pdouble_plain),
+        "padd_select": (pk.padd_select, pk.padd_select_plain),
+        "padd_select_scan": (pk.padd_select_scan, pk.padd_select_scan_plain),
+        "padd_mixed_select2": (pk.padd_mixed_select2_scan, pk.padd_mixed_select2_scan_plain),
+        "padd_mixed_select": (pk.padd_mixed_select, pk.padd_mixed_select_plain),
+    }
+
+
 def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_rec: Recorder | None = None,
                   service_recs: dict | None = None) -> list[dict]:
     """Each kernel vs its plain version on every recorded input (the
@@ -561,25 +603,10 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
     MSM's input; the K2 row its time and bound at each service shape."""
     import torch
 
-    from mina_bridge_tpu_torch.curves import point_kernels as pk
-    from mina_bridge_tpu_torch.fields import chain_kernel
     from mina_bridge_tpu_torch.fields.params import FP
-    from mina_bridge_tpu_torch.hash import transcript_kernel as tk
 
-    fns = {
-        "pow_const": (chain_kernel.pow_const_rows, chain_kernel.pow_const_plain),
-        "transcript_blocks": (tk.transcript_blocks, tk.transcript_blocks_plain),
-        "padd": (pk.padd, pk.padd_plain),
-        "padd_weight_sum": (pk.padd_weight_sum, pk.padd_weight_sum_plain),
-        "padd_fixup": (pk.padd_fixup, pk.padd_fixup_plain),
-        "pdouble": (pk.pdouble, pk.pdouble_plain),
-        "padd_select": (pk.padd_select, pk.padd_select_plain),
-        "padd_select_scan": (pk.padd_select_scan, pk.padd_select_scan_plain),
-        "padd_mixed_select2": (pk.padd_mixed_select2_scan, pk.padd_mixed_select2_scan_plain),
-        "padd_mixed_select": (pk.padd_mixed_select, pk.padd_mixed_select_plain),
-    }
     rows = []
-    for name, (kern, plain) in fns.items():
+    for name, (kern, plain) in kernel_pairs().items():
         timed = rec.inputs[name]
         if not timed:
             raise RuntimeError(f"{name}: the verify never called this kernel")
@@ -1782,6 +1809,319 @@ def parallel_phase(ctx: dict) -> dict:
     return out
 
 
+PROVER_KIMCHI = (16, 2)  # phase 11 (a): log2 n and proofs of fixtures/kimchi_2e16_b2.json.gz
+PROVER_TIPS = (17, 18)  # phase 11 (c): wrap and step log2 n of fixtures/pickles_2e17_s2e18_b2.json.gz
+PROVER_SITES = {"pow_const", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan", "padd_mixed_select2"}
+
+
+class CountPerCall:
+    """Wraps module.attr: the launch counters are set to 0 just before each
+    call and read just after; `counts` holds one dict a call, `seconds`
+    the call's wall time (the device synchronized)."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+        self.counts, self.seconds = [], []
+
+    def __enter__(self):
+        import torch
+
+        from mina_bridge_tpu_torch import kernels
+
+        fn = self.orig = getattr(self.module, self.attr)
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.time() - t0)
+            self.counts.append(dict(kernels.launches))
+            return out
+
+        setattr(self.module, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+class RecordFirst:
+    """Wraps module.attr so that its first call runs inside a Recorder of
+    the kernels in `only`: `rec` then holds the inputs they received in
+    that call."""
+
+    def __init__(self, module, attr: str, only):
+        self.module, self.attr, self.only = module, attr, only
+        self.rec = None
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.attr)
+
+        def wrapped(*a, **k):
+            if self.rec is not None:
+                return fn(*a, **k)
+            with Recorder(only=self.only) as rec:
+                out = fn(*a, **k)
+            self.rec = rec
+            return out
+
+        setattr(self.module, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+def check_prover_inputs(rec: Recorder, rows: list[dict], where: str) -> list:
+    """Phase 5's exact check on inputs recorded in a counted proof of phase
+    11, run after the proof's counters were read: each kernel against its
+    plain version on every recorded input, timed there (a CUDA-event mean
+    over 3 launches; the plain version over 1). Raises on any difference.
+    The kernel's row gains the input sets checked."""
+    import torch
+
+    pairs = kernel_pairs()
+    by_name = {row["name"]: row for row in rows}
+    out = []
+    for name, sets in rec.inputs.items():
+        kern, plain = pairs[name]
+        for key, args in sets.items():
+            a = canon_out(name, args[0], kern(*fresh(args)))
+            b = canon_out(name, args[0], plain(*fresh(args)))
+            err = int((a - b).abs().max())
+            torch.cuda.synchronize()
+            if err != 0:
+                raise RuntimeError(f"{name}: kernel and plain version disagree on {where}'s input {key} "
+                                   f"(max abs limb error {err})")
+            shape = [list(t) for t in key if isinstance(t, tuple)]
+            got = {"name": name, "where": where, "shape": shape, "max_abs_err": err,
+                   "ms": cuda_ms(lambda a=args: kern(*fresh(a)), 3), "plain_ms": cuda_ms(lambda a=args: plain(*fresh(a)), 1)}
+            row = by_name[name]
+            row["shapes_checked"] += 1
+            row.setdefault("prover_inputs_checked", []).append(got)
+            out.append(got)
+    log(f"phase 5's check on {where}'s recorded inputs: {len(out)} sets exact "
+        f"({sorted({(x['name'], str(x['shape'])) for x in out})})")
+    return out
+
+
+def pos_fixture_doc() -> dict:
+    import gzip
+
+    with gzip.open(ROOT / "fixtures" / "pos_2e10_s2e4_b8.json.gz", "rt") as f:
+        return json.load(f)
+
+
+def regen_state_proof(entry: dict, dev, timings: dict | None = None):
+    """One Proof-of-State of the toy fixture proved again on the card as
+    scripts/make_pos_fixture.py made it: random.Random(seed), the chain,
+    then prove_tip on the chain's tip. Raises unless the pub input and the
+    proof (its tip included) encode to the committed bytes."""
+    import random
+
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import pickles_wire
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    rng = random.Random(entry["seed"])
+    pub, proof, _, _ = bfx.make_state_proof(rng)
+    tip = pv.prove_tip(pub.candidate_chain_state_hashes[-1], rng, device=str(dev), timings=timings)
+    proof = dataclasses.replace(proof, candidate_tip_proof=pickles_wire.tip_doc(tip))
+    if pub.encode().hex() != entry["pub"] or proof.encode().hex() != entry["proof"]:
+        raise RuntimeError(f"toy Proof-of-State (seed {entry['seed']}) differs from the committed one")
+    return pub, proof, tip
+
+
+def prover_inputs(seed: int, dev) -> dict:
+    """Phase 11's first part, before phase 5: the toy wrap (2^10) and step
+    (2^4) setups on the card, then toy tip 0 of the Proof-of-State fixture
+    proved again with the inputs of K1 (the z and z_L inversions) and of
+    pmsm's kernels (every commitment, the IPA's L, R and sg) recorded:
+    they join phase 5's exact checks."""
+    import torch
+
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    doc = pos_fixture_doc()
+    t0 = time.time()
+    pv.step_setup(doc["step_log_n"], str(dev))
+    t1 = time.time()
+    pv.wrap_setup(doc["block_log_n"], doc["step_log_n"], str(dev))
+    torch.cuda.synchronize()
+    t2 = time.time()
+    with Recorder(only=PROVER_SITES) as rec:
+        first = regen_state_proof(doc["proofs"][0], dev)
+    torch.cuda.synchronize()
+    log(f"prover inputs: toy step setup {t1 - t0:.1f} s, wrap setup {t2 - t1:.1f} s; toy tip 0 recorded, equal "
+        f"to the fixture's, in {time.time() - t2:.1f} s")
+    return {"doc": doc, "rec": rec, "first": first, "dev": dev, "seed": seed,
+            "toy_setup_s": {"step": t1 - t0, "wrap": t2 - t1}}
+
+
+def kimchi_prover(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 11 (a): make_fixture(16, 2) on the card equal to the committed
+    fixture; the verify accepts both proofs at B = 2 and rejects phase 6's
+    tamper."""
+    import gzip
+
+    import torch
+
+    from mina_bridge_tpu_torch.commitment import ipa
+    from mina_bridge_tpu_torch.curves.srs import load_srs
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.kimchi import prover_host
+    from mina_bridge_tpu_torch.kimchi import verifier as kv
+
+    dev = ctx["dev"]
+    log_n, batch = PROVER_KIMCHI
+    with gzip.open(bf.fixture_path(log_n, batch), "rt") as f:
+        want = json.load(f)
+    timings: list = []
+    torch.cuda.reset_peak_memory_stats()
+    with (CountPerCall(prover_host, "prove") as per, RecordFirst(prover_host, "prove", {"pow_const"}) as k1,
+          RecordFirst(ipa.HostIpaProver, "open", PROVER_SITES - {"pow_const"}) as opening):
+        index, proofs = bf.make_fixture(log_n, batch, device=str(dev), timings=timings)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if bf._index_doc(index) != want["index"]:
+        raise RuntimeError("the 2^16 index differs from fixtures/kimchi_2e16_b2.json.gz")
+    for i, pr in enumerate(proofs):
+        if bf._proof_doc(pr) != want["proofs"][i]:
+            raise RuntimeError(f"2^16 proof {i} differs from fixtures/kimchi_2e16_b2.json.gz")
+    srs = load_srs("pallas", 1 << log_n)
+    dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
+    dproofs = kv.DeviceProofs.from_host(proofs, dev)
+    rng = np.random.default_rng(ctx["seed"] + 11)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(2)]
+                                   for _ in range(batch)]), device=dev)
+    hint = kv.host_public_commitments(dindex, [p.public for p in proofs])
+    if kv.verify(dindex, dproofs, rw, pub_comm_hint=hint) is not True:
+        raise RuntimeError("the verify rejected the port's 2^16 proofs")
+    bad = dataclasses.replace(dproofs, evals=dproofs.evals.clone())
+    e = ffl.to_int(index.curve.scalar, bad.evals[0, 5, 0])
+    bad.evals[0, 5, 0] = torch.as_tensor(int_to_limbs((e + 1) % index.curve.scalar.p, NLIMBS), device=dev)
+    if kv.verify(dindex, bad, rw, pub_comm_hint=hint) is not False:
+        raise RuntimeError("the verify accepted a tampered evaluation of the port's 2^16 proof")
+    for row in rows:
+        row["prover_launches_per_proof_2e16"] = [c[row["name"]] for c in per.counts]
+    checked = (check_prover_inputs(k1.rec, rows, "2^16 proof 0")
+               + check_prover_inputs(opening.rec, rows, "2^16 proof 0's opening"))
+    if 2 ** log_n - 3 not in {x["shape"][0][0] for x in checked if x["name"] == "pow_const"}:
+        raise RuntimeError(f"K1's 2^{log_n} inversion was not recorded")
+    out = {"log_n": log_n, "proofs": batch, "setup_s": timings[0]["setup"], "prove_s": per.seconds,
+           "stages_s": timings[1:], "launches": [{k: v for k, v in c.items() if v} for c in per.counts],
+           "peak_device_gb": peak_gb, "equal_to_fixture": True, "verify_accepts": True, "tamper_rejected": True,
+           "kernel_inputs_checked": checked}
+    log(f"phase 11 (a): setup 2^{log_n} {out['setup_s']:.1f} s; proofs {[round(t, 1) for t in per.seconds]} s; "
+        f"equal to the fixture; verify accepts, tamper rejected; stages {timings[1]}; launches {out['launches'][0]}")
+    return out
+
+
+def toy_tips_prover(ctx: dict) -> dict:
+    """Phase 11 (b): the 8 toy Proof-of-States proved again (tip 0 in
+    prover_inputs), each equal to the fixture's bytes; both index docs
+    equal to the fixture's; the service accepts all 8."""
+    import torch
+
+    from mina_bridge_tpu_torch.bridge import aligned
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    dev, doc = ctx["dev"], ctx["doc"]
+    done = [ctx["first"]]
+    stages = []
+    with CountPerCall(pv, "prove_tip") as per:
+        for entry in doc["proofs"][1:]:
+            st: dict = {}
+            done.append(regen_state_proof(entry, dev, st))
+            stages.append({k: v for k, v in st.items() if k.endswith("_s")})
+    _, w_index, w_dindex, _, _ = pv.block_setup(doc["block_log_n"], doc["step_log_n"], str(dev))
+    _, s_index, s_dindex, _, _ = pv.step_setup(doc["step_log_n"], str(dev))
+    if bf._index_doc(w_index) != doc["wrap_index"] or bf._index_doc(s_index) != doc["step_index"]:
+        raise RuntimeError("the toy wrap or step index differs from the fixture's")
+    pubs, proofs, tips = (list(x) for x in zip(*done))
+    rng = np.random.default_rng(ctx["seed"] + 12)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)]
+                                   for _ in tips]), device=dev)
+    res = aligned.CudaVerifierService(w_dindex, s_dindex).submit_states(pubs, proofs, tips, rw)
+    if not all(r.ok for r in res):
+        raise RuntimeError(f"the service rejected the port's toy state proofs: {[r.reason for r in res]}")
+    out = {"tips": len(tips), "tip_s": per.seconds, "stages_s": stages,
+           "launches_per_tip": [{k: v for k, v in c.items() if v} for c in per.counts],
+           "equal_to_fixture": True, "service_accepts": True, "setup_s": ctx["toy_setup_s"]}
+    log(f"phase 11 (b): 8 toy tips equal to fixtures/pos_2e10_s2e4_b8.json.gz (7 timed: "
+        f"{[round(t, 2) for t in per.seconds]} s); indexes equal; the service accepts all 8")
+    return out
+
+
+def real_tip_prover(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 11 (c): make_tips(17, 18, 1) on the card equal to tip 0 of
+    fixtures/pickles_2e17_s2e18_b2.json.gz, both index docs equal to the
+    file's, and batch_verify_tips accepts it."""
+    import gzip
+
+    import torch
+
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    dev = ctx["dev"]
+    wl, sl = PROVER_TIPS
+    with gzip.open(pfx.fixture_path(wl, sl, 2), "rt") as f:
+        want = json.load(f)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, s_index, s_dindex, _, _ = pv.step_setup(sl, str(dev))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    _, _, w_index, w_dindex, _, _ = pv.wrap_setup(wl, sl, str(dev))
+    torch.cuda.synchronize()
+    t2 = time.time()
+    if bf._index_doc(s_index) != want["step_index"] or bf._index_doc(w_index) != want["wrap_index"]:
+        raise RuntimeError("the 2^17 / 2^18 index docs differ from the fixture's")
+    timings: list = []
+    with CountPerCall(pv, "prove_tip") as per, RecordFirst(pv, "prove_tip", {"pow_const"}) as k1:
+        tips = pfx.make_tips(wl, sl, 1, device=str(dev), timings=timings)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if pfx._tip_doc(tips[0]) != want["tips"][0]:
+        raise RuntimeError("the 2^17 / 2^18 tip 0 differs from fixtures/pickles_2e17_s2e18_b2.json.gz")
+    rng = np.random.default_rng(ctx["seed"] + 13)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)]]),
+                         device=dev)
+    if pv.batch_verify_tips(pv.DeviceTips.from_host(tips, dev), rw, w_dindex, s_dindex) is not True:
+        raise RuntimeError("batch_verify_tips rejected the port's real-scale tip")
+    for row in rows:
+        row["prover_launches_per_tip_2e17_2e18"] = per.counts[0][row["name"]]
+    checked = check_prover_inputs(k1.rec, rows, "the 2^17 / 2^18 tip")
+    if not {2 ** sl - 3, 2 ** wl - 3} <= {x["shape"][0][0] for x in checked}:  # the z denominators' rows
+        raise RuntimeError(f"K1's 2^{sl} and 2^{wl} inversions were not recorded: {[x['shape'] for x in checked]}")
+    t = timings[0]
+    out = {"wrap_log_n": wl, "step_log_n": sl, "setup_s": {"step": t1 - t0, "wrap": t2 - t1}, "tip_s": per.seconds[0],
+           "step_s": t["step_s"], "step_check_s": t["step_check_s"], "wrap_s": t["wrap_s"],
+           "stages_s": {"step": t["step"], "wrap": t["wrap"]},
+           "launches": {k: v for k, v in per.counts[0].items() if v}, "peak_device_gb": peak_gb,
+           "equal_to_fixture": True, "verify_accepts": True, "kernel_inputs_checked": checked}
+    log(f"phase 11 (c): setups step 2^{sl} {t1 - t0:.1f} s, wrap 2^{wl} {t2 - t1:.1f} s; tip {per.seconds[0]:.1f} s "
+        f"(step {t['step_s']:.1f}, its check {t['step_check_s']:.1f}, wrap {t['wrap_s']:.1f}); peak {peak_gb:.1f} GB; "
+        f"equal to the fixture; batch_verify_tips accepts")
+    return out
+
+
+def prover_phase(ctx: dict, rows: list[dict]) -> dict:
+    """Phase 11 after phase 10 (see the module docstring)."""
+    t_phase = time.time()
+    out = {"kimchi": kimchi_prover(ctx, rows), "toy_tips": toy_tips_prover(ctx), "real_tip": real_tip_prover(ctx, rows)}
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1868,11 +2208,14 @@ def main() -> int:
     tips_ctx = tips_inputs(args.seed, dev)
     service_ctx = service_inputs(args.seed, dev)
     bridge_ctx = bridge_inputs(args.seed, dev)
+    prover_ctx = prover_inputs(args.seed, dev)
 
     # ---- 5. kernels vs plain versions ----
     msm_scan = next(iter(msm_rec.inputs["padd_mixed_select2"].values()))
-    rows = check_kernels(rec, extra_inputs(rec, msm_rec, args.seed, dev), probe, msm_scan, tips_ctx["rec"],
-                         service_ctx["recs"] | bridge_ctx["recs"])
+    extra = extra_inputs(rec, msm_rec, args.seed, dev)
+    for name, recorded in prover_ctx["rec"].inputs.items():  # the toy tip's K1 and pmsm inputs
+        extra[name] = list(extra.get(name, [])) + list(recorded.values())
+    rows = check_kernels(rec, extra, probe, msm_scan, tips_ctx["rec"], service_ctx["recs"] | bridge_ctx["recs"])
 
     # ---- 6. the main path, counted ----
     kernels.reset_launches()
@@ -1920,6 +2263,9 @@ def main() -> int:
         "verify": (dindex, dproofs, rw, hint), "msm": (scalars, points, list(got[0])), "curve": PALLAS,
         "seed": args.seed, "dev": dev})
 
+    # ---- 11. the prover: Kimchi 2^16, the toy tips, one real-scale tip ----
+    report["prover"] = prover = prover_phase(prover_ctx, rows)
+
     report["kernels"] = rows
     report["total_s"] = time.time() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1927,6 +2273,7 @@ def main() -> int:
     print(json.dumps({"service": service}))
     print(json.dumps({"bridge": bridge}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"prover": prover}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

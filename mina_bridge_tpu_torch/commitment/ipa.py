@@ -1,10 +1,22 @@
 """IPA polynomial-commitment verification, device half, on torch tensors.
 
-Counterpart of the device half of mina_bridge_tpu/commitment/ipa.py
+Counterpart of mina_bridge_tpu/commitment/ipa.py: the device half
 (`aff_to_rep`, `endo_to_field_device`, `_split_128_device`,
 `device_s_vector`, `device_rho_s_sum`, `batch_decide`, `DeviceOpenings`,
-`u_hint_arrays`, `batch_verify`) plus the host dataclass of an opening
-proof that the fixture loader fills.
+`u_hint_arrays`, `batch_verify`) and the prover's half (`_split_scalar`,
+`host_squeeze_128`, `endo_to_field`, `host_endo_chal`, `host_commit`,
+`host_b_poly`, `host_s_vector`, `HostIpaProver`, and `host_verify`, the
+pure-Python oracle).
+
+`HostIpaProver.open` keeps the transcript and the per-round scalars on
+the host and every O(n) step on the prover's device: the combined
+polynomial, the b vector, the a and b folds, and the commitments. Where
+the JAX prover folds the generators (g' = g_lo + u g_hi, n scalar
+multiplications a round), round r's L and R are each one MSM over the
+original SRS points: after r folds g^(r)_j = sum_t c_t g_(j + t m) with
+m = n / 2^r and c the coefficients of prod (1 + u_i X), so
+L_r = sum_(t, j < m/2) (c_t a_hi[j]) g_(t m + j), R_r likewise over the
+upper halves, and sg = <c, g> at the end: the same points.
 
 Every opening in a batch reduces to ONE random-linear-combination MSM
 over [H, U_b, g_0..g_{n-1}, sg_b, delta_b, L/R_b, C_b] + extra rows. As
@@ -21,15 +33,22 @@ import torch
 
 from ..curves import curve as cv
 from ..curves import groupmap as gm
+from ..curves import host as hc
 from ..curves.host import CurveSpec
 from ..fields import ffl
+from ..fields import host as fh
 from ..fields.params import LIMB_BITS, LIMB_MASK, NLIMBS, int_to_limbs
 from ..hash import poseidon
+from ..hash.poseidon import HostSponge
 from ..hash.poseidon_params import poseidon_spec
 from ..ops import msm as msm_mod
 from ..ops import pmsm as pmsm_mod
 
 CHALLENGE_BITS = 128
+# polynomials combined at once in HostIpaProver.open: bounds the product's
+# temporaries at 32 x n x 43 int64 (1.1 GB at n = 2^16) for the 230 rows
+# of a 2^18 step opening
+_COMBINE_BLOCK = 32
 
 # keep limbs 0..8 and the low 11 bits of limb 9: a 128-bit challenge
 _MASK128 = np.zeros(NLIMBS, dtype=np.int64)
@@ -52,6 +71,23 @@ def mask128(x: torch.Tensor) -> torch.Tensor:
     return x & torch.as_tensor(_MASK128, device=x.device)
 
 
+def commit_many(curve: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
+    """R MSMs: scalars (R, M, 20) canonical over points (N, 3, 22), row r
+    over points[idx[r]] ((R, M) indices; all N points without idx). On the
+    card one pmsm (K3-K6) a row; on the CPU one batched plain call
+    (ops/msm.py::msm_batch). Returns (R, 3, 22)."""
+    if scalars.device.type != "cuda":
+        return msm_mod.msm_batch(curve, scalars, points, idx)
+    from ..curves import point_kernels as pk
+
+    shared = pk.to_rows(points).contiguous() if idx is None else None
+    out = []
+    for r in range(scalars.shape[0]):
+        rows = shared if shared is not None else pk.to_rows(points[idx[r]]).contiguous()
+        out.append(pk.from_rows(pmsm_mod.msm_rows(curve, scalars[r], rows))[0])
+    return torch.stack(out)
+
+
 @dataclasses.dataclass
 class HostOpeningProof:
     lr: list  # [(L, R)] affine pairs
@@ -63,6 +99,236 @@ class HostOpeningProof:
     prechals: list = dataclasses.field(default_factory=list)
     vprime: int = 0
     u_hints: gm.UHints | None = None
+
+
+def _low128_int(x: int) -> int:
+    return x & ((1 << CHALLENGE_BITS) - 1)
+
+
+def _split_scalar(curve: CurveSpec, s: int) -> tuple[int, int]:
+    """Scalar-field int -> two base-field absorbable pieces (low128, high)."""
+    return _low128_int(s), s >> CHALLENGE_BITS
+
+
+def host_squeeze_128(sponge: HostSponge) -> int:
+    return _low128_int(sponge.squeeze())
+
+
+def endo_to_field(t: int, endo: int, p: int, nbits: int = CHALLENGE_BITS) -> int:
+    """Kimchi's ScalarChallenge.to_field: crumbs MSB-first, crumb j =
+    bits (2j+1, 2j) = (hi, lo); hi selects the endo side, sign 2 lo - 1."""
+    a = b = 2
+    for j in reversed(range(nbits // 2)):
+        a <<= 1
+        b <<= 1
+        hi, lo = (t >> (2 * j + 1)) & 1, (t >> (2 * j)) & 1
+        if hi:
+            a += 2 * lo - 1
+        else:
+            b += 2 * lo - 1
+    return (a * endo + b) % p
+
+
+def host_endo_chal(curve: CurveSpec, sponge: HostSponge) -> int:
+    """Squeeze a 128-bit prechallenge and endo-map it."""
+    return endo_to_field(host_squeeze_128(sponge), curve.endo_scalar, curve.scalar.p)
+
+
+def host_commit(curve: CurveSpec, g: list, h, coeffs: list[int], blind: int):
+    """Pedersen commitment <coeffs, g> + blind h on host points (oracles)."""
+    return hc.add(curve, hc.msm(curve, coeffs, g[: len(coeffs)]), hc.mul(curve, blind, h))
+
+
+def host_b_poly(chals: list[int], x: int, p: int) -> int:
+    """h(x) = prod_i (1 + chals[k-1-i] x^(2^i))."""
+    k = len(chals)
+    out = 1
+    xp = x % p
+    for i in range(k):
+        out = out * (1 + chals[k - 1 - i] * xp) % p
+        xp = xp * xp % p
+    return out
+
+
+def host_s_vector(chals: list[int], p: int) -> list[int]:
+    """Coefficient vector of h(X) (length 2^k)."""
+    s = [1]
+    for u in reversed(chals):
+        s = s + [si * u % p for si in s]
+    return s
+
+
+def srs_rep(curve: CurveSpec, g, device) -> torch.Tensor:
+    """SRS points as (N, 3, 22) projective REP on `device`, from host
+    tuples or a (N, 2, 20) canonical affine array."""
+    if torch.is_tensor(g) or isinstance(g, np.ndarray):
+        aff = torch.as_tensor(np.asarray(g.cpu() if torch.is_tensor(g) else g, dtype=np.int64), device=device)
+    else:
+        flat = ffl.ints_to_limbs([v for pt in g for v in pt]).reshape(len(g), 2, NLIMBS)
+        aff = torch.as_tensor(flat, device=device)
+    return aff_to_rep(aff)
+
+
+class HostIpaProver:
+    """Opens a batch of polynomial evaluations with one IPA proof, in the
+    JAX package's transcript order:
+      absorb C_i (unless a sponge is given); squeeze v, u;
+      f = sum v^i f_i, r = sum v^i r_i, v' = sum_(i,j) v^i u^j f_i(x_j);
+      absorb v' (two pieces); squeeze t; U = to_group(t);
+      k rounds: draw rl, rr; absorb L, R; squeeze the 128-bit prechallenge;
+      draw d, s_d; absorb delta; squeeze c.
+    g: the n SRS points (host tuples, a (n, 2, 20) canonical array or
+    (n, 3, 22) projective rows); the polynomials are (P, n, 22) REP on
+    `device` (the card unless "cpu")."""
+
+    def __init__(self, curve: CurveSpec, g, h, rng, device=None):
+        from .. import device as _device
+
+        self.curve = curve
+        self.h = h
+        self.rng = rng
+        self.device = _device(device)
+        self.points = g if torch.is_tensor(g) and g.dim() == 3 and g.shape[1] == 3 else srs_rep(curve, g, self.device)
+
+    def open(self, polys, blinds, commitments, eval_points, sponge=None, v=None, u=None):
+        """commitments are absorbed only without a `sponge` (with one, which
+        has v and u already, they may be None)."""
+        curve = self.curve
+        fs = curve.scalar
+        ps = fs.p
+        dev = self.device
+        n = self.points.shape[0]
+        k = n.bit_length() - 1
+        assert 1 << k == n
+        if sponge is None:
+            sponge = HostSponge(poseidon_spec(sponge_for(curve)))
+            for pt in commitments:
+                sponge.absorb(pt[0] if pt else 0)
+                sponge.absorb(pt[1] if pt else 0)
+            v = host_endo_chal(curve, sponge)
+            u = host_endo_chal(curve, sponge)
+        assert v is not None and u is not None
+        if not torch.is_tensor(polys):
+            polys = torch.stack([ffl.from_canon(x) for x in polys])
+        P = polys.shape[0]
+
+        # combined polynomial, blind and inner product
+        vp = ffl.from_ints(fs, [pow(v, i, ps) for i in range(P)], dev)
+        f = None
+        for b0 in range(0, P, _COMBINE_BLOCK):
+            part = ffl.sum_rows(fs, ffl.mul(fs, polys[b0 : b0 + _COMBINE_BLOCK], vp[b0 : b0 + _COMBINE_BLOCK, None]), 0)
+            f = part if f is None else ffl.add(fs, f, part)
+        r = sum(pow(v, i, ps) * b for i, b in enumerate(blinds)) % ps
+        from ..kimchi.domain import poly_eval_t
+
+        fx = ffl.to_ints(fs, poly_eval_t(fs, f, list(eval_points)))
+        vprime = sum(pow(u, j, ps) * e for j, e in enumerate(fx)) % ps
+        lo, hi = _split_scalar(curve, vprime)
+        sponge.absorb(lo)
+        sponge.absorb(hi)
+        t = sponge.squeeze()
+        U, u_hints = gm.to_group_hints(curve, t)
+
+        bv = None
+        for j, x in enumerate(eval_points):
+            term = ffl.geometric(fs, pow(u, j, ps), x, n, dev)
+            bv = term if bv is None else ffl.add(fs, bv, term)
+
+        a = f
+        c = ffl.ones(fs, (1,), dev)  # coefficients of the folded generators
+        lr, chals, prechals = [], [], []
+        r_acc = r
+        for rnd in range(k):
+            m = a.shape[0] // 2
+            rl = self.rng.randrange(ps)
+            rr = self.rng.randrange(ps)
+            ip_l, ip_r = ffl.to_ints(
+                fs, ffl.sum_rows(fs, ffl.mul(fs, torch.stack([a[m:], a[:m]]), torch.stack([bv[:m], bv[m:]])), 1)
+            )
+            pos = torch.arange(n, device=dev).reshape(1 << rnd, 2, m)
+            sc = ffl.canon(fs, ffl.mul(fs, c[None, :, None], torch.stack([a[m:], a[:m]])[:, None]))
+            idx = torch.stack([pos[:, 0], pos[:, 1]]).reshape(2, n // 2)  # g_lo blocks for L, g_hi for R
+            Lm, Rm = cv.to_affine_ints(curve, commit_many(curve, sc.reshape(2, n // 2, NLIMBS), self.points, idx))
+            L = hc.add(curve, hc.add(curve, Lm, hc.mul(curve, rl, self.h)), hc.mul(curve, ip_l, U))
+            R = hc.add(curve, hc.add(curve, Rm, hc.mul(curve, rr, self.h)), hc.mul(curve, ip_r, U))
+            assert L is not None and R is not None
+            lr.append((L, R))
+            sponge.absorb(L[0]), sponge.absorb(L[1])
+            sponge.absorb(R[0]), sponge.absorb(R[1])
+            pre = host_squeeze_128(sponge)
+            ch = endo_to_field(pre, curve.endo_scalar, ps)
+            prechals.append(pre)
+            chals.append(ch)
+            ch_inv = fh.finv(fs, ch)
+            a = ffl.add(fs, a[:m], ffl.mul(fs, a[m:], ffl.from_int(fs, ch_inv, dev)))
+            bv = ffl.add(fs, bv[:m], ffl.mul(fs, bv[m:], ffl.from_int(fs, ch, dev)))
+            c = torch.stack([c, ffl.mul(fs, c, ffl.from_int(fs, ch, dev))], dim=1).reshape(-1, ffl.REP_LIMBS)
+            r_acc = (r_acc + ch_inv * rl + ch * rr) % ps
+
+        a0, b0 = ffl.to_ints(fs, torch.stack([a[0], bv[0]]))
+        (sg,) = cv.to_affine_ints(curve, commit_many(curve, ffl.canon(fs, c)[None], self.points))
+        assert sg is not None
+        d = self.rng.randrange(ps)
+        s_d = self.rng.randrange(ps)
+        Q = hc.add(curve, sg, hc.mul(curve, b0, U))
+        delta = hc.add(curve, hc.mul(curve, d, Q), hc.mul(curve, s_d, self.h))
+        assert delta is not None
+        sponge.absorb(delta[0]), sponge.absorb(delta[1])
+        cc = host_endo_chal(curve, sponge)
+        proof = HostOpeningProof(
+            lr=lr,
+            delta=delta,
+            z1=(d + cc * a0) % ps,
+            z2=(s_d + cc * r_acc) % ps,
+            sg=sg,
+            chals=list(chals),
+            prechals=list(prechals),
+            vprime=vprime,
+            u_hints=u_hints,
+        )
+        return proof, {"v": v, "u": u, "t": t, "chals": chals, "vprime": vprime, "b0": b0}
+
+
+def host_verify(curve: CurveSpec, g: list, h, commitments, eval_points, evals, proof: HostOpeningProof,
+                sponge=None, v=None, u=None) -> bool:
+    """The opening check in host big-int arithmetic (the tests' oracle)."""
+    ps = curve.scalar.p
+    if sponge is None:
+        sponge = HostSponge(poseidon_spec(sponge_for(curve)))
+        for pt in commitments:
+            sponge.absorb(pt[0] if pt else 0)
+            sponge.absorb(pt[1] if pt else 0)
+        v = host_endo_chal(curve, sponge)
+        u = host_endo_chal(curve, sponge)
+    vprime = 0
+    for i in range(len(commitments)):
+        for j in range(len(eval_points)):
+            vprime = (vprime + pow(v, i, ps) * pow(u, j, ps) * evals[i][j]) % ps
+    lo, hi = _split_scalar(curve, vprime)
+    sponge.absorb(lo)
+    sponge.absorb(hi)
+    U = gm.to_group(curve, sponge.squeeze())
+    chals = []
+    for L, R in proof.lr:
+        sponge.absorb(L[0]), sponge.absorb(L[1])
+        sponge.absorb(R[0]), sponge.absorb(R[1])
+        chals.append(host_endo_chal(curve, sponge))
+    sponge.absorb(proof.delta[0]), sponge.absorb(proof.delta[1])
+    c = host_endo_chal(curve, sponge)
+    b0 = 0
+    for j, x in enumerate(eval_points):
+        b0 = (b0 + pow(u, j, ps) * host_b_poly(chals, x, ps)) % ps
+    if hc.msm(curve, host_s_vector(chals, ps), g) != proof.sg:
+        return False
+    P = None
+    for i, Ci in enumerate(commitments):
+        P = hc.add(curve, P, hc.mul(curve, pow(v, i, ps), Ci))
+    P = hc.add(curve, P, hc.mul(curve, vprime, U))
+    for (L, R), ch in zip(proof.lr, chals):
+        P = hc.add(curve, P, hc.mul(curve, fh.finv(curve.scalar, ch), L))
+        P = hc.add(curve, P, hc.mul(curve, ch, R))
+    lhs = hc.add(curve, hc.mul(curve, proof.z1, hc.add(curve, proof.sg, hc.mul(curve, b0, U))), hc.mul(curve, proof.z2, h))
+    return lhs == hc.add(curve, proof.delta, hc.mul(curve, c, P))
 
 
 def endo_to_field_device(spec, endo: int, t_canon: torch.Tensor) -> torch.Tensor:

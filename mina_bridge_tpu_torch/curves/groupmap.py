@@ -1,10 +1,12 @@
 """Shallue-van de Woestijne group map (kimchi's `to_group`), device side.
 
 Counterpart of mina_bridge_tpu/curves/groupmap.py: `params_for` (the map's
-constants, host ints) and `device_u_points`, which recomputes the three
-x candidates for a batch of transcript challenges and validates the
-host-supplied hints (branch, even root y, non-square witnesses, alpha)
-by squaring, so the hints are untrusted.
+constants, host ints), the host map `to_group` and `to_group_hints` (the
+IPA prover's U point and its hints, over `potential_xs` and `curve_eqn`),
+and `device_u_points`, which recomputes the three x candidates for a
+batch of transcript challenges and validates the host-supplied hints
+(branch, even root y, non-square witnesses, alpha) by squaring, so the
+hints are untrusted.
 """
 
 from __future__ import annotations
@@ -63,6 +65,50 @@ def params_for(curve: CurveSpec) -> GroupMapParams:
         inv_three_u_squared=pow(three_u2, p - 2, p),
         nonsquare=nonsquare,
     )
+
+
+def potential_xs(curve: CurveSpec, t: int) -> tuple[int, int, int]:
+    """The three x candidates for challenge t."""
+    gp = params_for(curve)
+    p = curve.base.p
+    t2 = t * t % p
+    d = t2 * (t2 + gp.fu) % p
+    alpha = pow(d, p - 2, p) if d else 0
+    x1 = (gp.sqrt_neg_three_u_squared_minus_u_over_2 - t2 * t2 % p * alpha % p * gp.sqrt_neg_three_u_squared) % p
+    x2 = (-gp.u - x1) % p
+    t2fu = (t2 + gp.fu) % p
+    x3 = (gp.u - t2fu * t2fu % p * t2fu % p * alpha % p * gp.inv_three_u_squared) % p
+    return x1, x2, x3
+
+
+def curve_eqn(curve: CurveSpec, x: int) -> int:
+    return (x * x % curve.base.p * x + curve.b) % curve.base.p
+
+
+def to_group(curve: CurveSpec, t: int) -> tuple[int, int]:
+    """The first candidate with a square f(x); y is the even root."""
+    return to_group_hints(curve, t)[0]
+
+
+def to_group_hints(curve: CurveSpec, t: int) -> tuple[tuple[int, int], UHints]:
+    """to_group(t) and the hints device_u_points checks."""
+    gp = params_for(curve)
+    fb = curve.base
+    p = fb.p
+    t2 = t * t % p
+    d = t2 * (t2 + gp.fu) % p
+    alpha = pow(d, p - 2, p) if d else 0
+    wits = [0, 0]
+    for i, x in enumerate(potential_xs(curve, t)):
+        y = fh.fsqrt(fb, curve_eqn(curve, x))
+        if y is not None:
+            if y % 2:
+                y = p - y
+            return (x, y), UHints(sel=i, y=y, wits=(wits[0], wits[1]), alpha=alpha)
+        w = fh.fsqrt(fb, gp.nonsquare * curve_eqn(curve, x) % p)
+        assert w is not None
+        wits[i] = w
+    raise AssertionError("SvdW: no candidate was square (impossible)")
 
 
 def device_u_points(

@@ -1,8 +1,13 @@
 """Host (Python int) Pasta curves: the subset the port needs.
 
 Counterpart of mina_bridge_tpu/curves/host.py: `CurveSpec`, `PALLAS` /
-`VESTA`, affine add and scalar multiplication (Jacobian inside), and
+`VESTA`, `embedded_curve`, `is_on_curve`, affine add, negation and scalar
+multiplication (Jacobian inside), a pure-Python Pippenger `msm`, and
 `decompress` for the SRS. Both curves: y^2 = x^3 + 5, generator (-1, 2).
+
+`mul` and `msm` work on single points and small oracles (the prover's
+blinding terms, the tests' host verify); every SRS-sized MSM of the port
+runs on tensors (ops/pmsm.py on the card, ops/msm.py on the CPU).
 """
 
 from __future__ import annotations
@@ -52,6 +57,12 @@ class CurveSpec:
         assert mul(self, lam2, gen) == phi
         return lam2
 
+    def phi(self, pt: "Point") -> "Point":
+        """The GLV endomorphism (x, y) -> (endo_base x, y)."""
+        if pt is None:
+            return None
+        return (self.endo_base * pt[0] % self.base.p, pt[1])
+
     def __repr__(self) -> str:
         return f"CurveSpec({self.name})"
 
@@ -77,6 +88,19 @@ PALLAS = CurveSpec("pallas", FP, FQ)
 VESTA = CurveSpec("vesta", FQ, FP)
 
 
+def embedded_curve(c: CurveSpec) -> CurveSpec:
+    """The cycle partner whose coordinates live in c's scalar field: the
+    curve the EC gates operate on inside circuits proven over c."""
+    return VESTA if c.name == "pallas" else PALLAS
+
+
+def is_on_curve(c: CurveSpec, pt: Point) -> bool:
+    if pt is None:
+        return True
+    x, y = pt
+    return (y * y - (x * x * x + c.b)) % c.base.p == 0
+
+
 def add(c: CurveSpec, a: Point, b: Point) -> Point:
     p = c.base.p
     if a is None:
@@ -94,6 +118,12 @@ def add(c: CurveSpec, a: Point, b: Point) -> Point:
     x3 = (lam * lam - x1 - x2) % p
     y3 = (lam * (x1 - x3) - y1) % p
     return (x3, y3)
+
+
+def neg(c: CurveSpec, a: Point) -> Point:
+    if a is None:
+        return None
+    return (a[0], (-a[1]) % c.base.p)
 
 
 def _jdbl(c: CurveSpec, P):
@@ -140,6 +170,16 @@ def _jadd(c: CurveSpec, P, Q):
     return None if Z3 == 0 else (X3, Y3, Z3)
 
 
+def _from_jac(c: CurveSpec, P) -> Point:
+    if P is None:
+        return None
+    p = c.base.p
+    X, Y, Z = P
+    zi = pow(Z, p - 2, p)
+    zi2 = zi * zi % p
+    return (X * zi2 % p, Y * zi2 * zi % p)
+
+
 def mul(c: CurveSpec, k: int, pt: Point) -> Point:
     """[k] pt by Jacobian double-and-add."""
     k %= c.scalar.p
@@ -150,13 +190,33 @@ def mul(c: CurveSpec, k: int, pt: Point) -> Point:
             acc = _jadd(c, acc, base)
         base = _jdbl(c, base)
         k >>= 1
-    if acc is None:
-        return None
-    p = c.base.p
-    X, Y, Z = acc
-    zi = pow(Z, p - 2, p)
-    zi2 = zi * zi % p
-    return (X * zi2 % p, Y * zi2 * zi % p)
+    return _from_jac(c, acc)
+
+
+def msm(c: CurveSpec, scalars: list[int], points: list[Point]) -> Point:
+    """sum_i scalars[i] points[i]: a host Pippenger over Jacobian
+    coordinates (13-bit windows, each bucket weighted by double-and-add)."""
+    W = 13
+    jpts = [None if pt is None else (pt[0], pt[1], 1) for pt in points]
+    ks = [k % c.scalar.p for k in scalars]
+    acc = None
+    for w in reversed(range(-(-255 // W))):
+        for _ in range(W if acc is not None else 0):
+            acc = _jdbl(c, acc)
+        buckets: dict[int, object] = {}
+        for k, pt in zip(ks, jpts):
+            d = (k >> (W * w)) & ((1 << W) - 1)
+            if d and pt is not None:
+                buckets[d] = _jadd(c, buckets.get(d), pt)
+        for d, b in buckets.items():
+            s = None
+            while d:
+                if d & 1:
+                    s = _jadd(c, s, b)
+                b = _jdbl(c, b)
+                d >>= 1
+            acc = _jadd(c, acc, s)
+    return _from_jac(c, acc)
 
 
 def decompress(c: CurveSpec, data: bytes) -> Point:

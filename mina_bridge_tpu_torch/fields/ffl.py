@@ -65,6 +65,8 @@ __all__ = [
     "eq",
     "is_zero",
     "select",
+    "sum_rows",
+    "geometric",
     "from_int",
     "from_ints",
     "ints_to_limbs",
@@ -323,6 +325,22 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(mask.unsqueeze(-1), a, b)
 
 
+def sum_rows(spec: FieldSpec, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Field sum of REP values along `dim` (fewer than 2^24 of them): one
+    limb sum (every limb stays below 2^39) and one reduction."""
+    return _reduce(spec, x.sum(dim=dim))
+
+
+def geometric(spec: FieldSpec, s0: int, ratio: int, n: int, device="cpu") -> torch.Tensor:
+    """(n, 22) REP limbs of s0 * ratio^i, i < n: log2(n) doubling products."""
+    out = from_int(spec, s0, device).unsqueeze(0)
+    while out.shape[0] < n:
+        m = out.shape[0]
+        k = min(m, n - m)
+        out = torch.cat([out, mul(spec, out[:k], from_int(spec, pow(ratio, m, spec.p), device))])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host conversion
 # ---------------------------------------------------------------------------
@@ -332,7 +350,13 @@ def from_int(spec: FieldSpec, v: int, device="cpu") -> torch.Tensor:
 
 
 def from_ints(spec: FieldSpec, xs, device="cpu") -> torch.Tensor:
-    arr = np.stack([int_to_limbs(int(v) % spec.p, REP_LIMBS) for v in xs])
+    """Python ints -> (len, 22) limbs of each value mod p. Only the
+    nonzero values are converted (prover columns are mostly zero)."""
+    vals = [int(v) % spec.p for v in xs]
+    arr = np.zeros((len(vals), REP_LIMBS), np.int64)
+    nz = [i for i, v in enumerate(vals) if v]
+    if nz:
+        arr[nz] = ints_to_limbs([vals[i] for i in nz], REP_LIMBS)
     return torch.as_tensor(arr, device=device)
 
 
@@ -350,6 +374,12 @@ def to_int(spec: FieldSpec, x) -> int:
 
 
 def to_ints(spec: FieldSpec, x) -> list[int]:
-    a = np.asarray(torch.as_tensor(x).cpu())
-    a = a.reshape(-1, a.shape[-1])
-    return [limbs_to_int(row) % spec.p for row in a]
+    """Limb rows (REP or canonical) -> their values in [0, p), flattened:
+    canonicalized on the tensor's device, packed to bytes on the host."""
+    x = torch.as_tensor(x)
+    c = canon(spec, from_canon(x.reshape(-1, x.shape[-1]))).cpu().numpy()
+    bits = ((c[:, :, None] >> np.arange(LIMB_BITS)) & 1).astype(np.uint8).reshape(len(c), -1)
+    raw = np.packbits(bits, axis=1, bitorder="little")
+    w = raw.shape[1]
+    b = raw.tobytes()
+    return [int.from_bytes(b[i * w : (i + 1) * w], "little") for i in range(len(c))]

@@ -3,7 +3,7 @@ host (Python int) sponge.
 
 Counterpart of mina_bridge_tpu/hash/poseidon.py: `permute`, `Sponge`,
 `hash_fixed`, `run_transcript` and the host `HostSponge` /
-`host_permute_py`. Width 3, rate 2, 55 full rounds; each round applies the
+`host_permute_py` / `host_permute_round`. Width 3, rate 2, 55 full rounds; each round applies the
 x^7 sbox to every word, then the MDS matrix, then the round constants.
 
 Device state has shape (..., 3, 22) (ffl REP limbs). `run_transcript`
@@ -33,6 +33,7 @@ __all__ = [
     "run_transcript",
     "HostSponge",
     "host_permute_py",
+    "host_permute_round",
 ]
 
 
@@ -261,14 +262,20 @@ def run_transcript(
 # Host reference (python ints)
 # ---------------------------------------------------------------------------
 
+def host_permute_round(ps: PoseidonSpec, state: list[int], r: int) -> list[int]:
+    """One full round (sbox, MDS, + round constants r): the poseidon gate's
+    round, for the prover's witness fill."""
+    p = ps.field.p
+    st = [pow(x, 7, p) for x in state]
+    st = [sum(ps.mds[i][j] * st[j] for j in range(WIDTH)) % p for i in range(WIDTH)]
+    return [(st[i] + ps.round_constants[r][i]) % p for i in range(WIDTH)]
+
+
 def host_permute_py(ps: PoseidonSpec, state: list[int]) -> list[int]:
     """The permutation on Python ints."""
-    p = ps.field.p
     st = list(state)
     for r in range(len(ps.round_constants)):
-        st = [pow(x, 7, p) for x in st]
-        st = [sum(ps.mds[i][j] * st[j] for j in range(WIDTH)) % p for i in range(WIDTH)]
-        st = [(st[i] + ps.round_constants[r][i]) % p for i in range(WIDTH)]
+        st = host_permute_round(ps, st, r)
     return st
 
 

@@ -1,9 +1,14 @@
-"""Loader for the committed real-scale Kimchi proof fixtures.
+"""The real-scale Kimchi proof fixtures: proving, writing and loading them.
 
-Counterpart of the loading half of mina_bridge_tpu/kimchi/bench_fixtures.py
-(`_index_from_doc`, `_proof_from_doc`, `load_fixture`, `fixture_path`):
-fixtures/kimchi_2e<log_n>_b<B>.json.gz hold an index's commitments and B
-host-proven proofs as hex-int JSON.
+Counterpart of mina_bridge_tpu/kimchi/bench_fixtures.py: the chain
+circuit (`build_chain_circuit`, a 2^log_n-row squaring chain whose result
+is the public input) and its witness, `make_fixture` (setup and `batch`
+proofs with `random.Random(20260820)`, on the card unless "cpu"), the
+hex-int JSON documents (`_index_doc`, `_proof_doc`, `save_fixture`) and
+the loader (`_index_from_doc`, `_proof_from_doc`, `load_fixture`,
+`fixture_path`). fixtures/kimchi_2e<log_n>_b<B>.json.gz hold an index's
+commitments and B proofs; the port's proofs equal them document for
+document.
 """
 
 from __future__ import annotations
@@ -11,10 +16,14 @@ from __future__ import annotations
 import gzip
 import json
 import pathlib
+import random
 
 from ..commitment import ipa
 from ..curves import groupmap as gm
 from ..curves.host import PALLAS, CurveSpec
+from ..curves.srs import load_srs
+from . import prover_host
+from .circuit import COLUMNS, CircuitBuilder
 from .domain import Domain
 from .prover_host import HostProof, VerifierIndexHost
 
@@ -23,6 +32,132 @@ FIXTURES = pathlib.Path(__file__).resolve().parents[2] / "fixtures"
 
 def fixture_path(log_n: int, batch: int) -> pathlib.Path:
     return FIXTURES / f"kimchi_2e{log_n}_b{batch}.json.gz"
+
+
+def build_chain_circuit(field, log_n: int, n_gates: int):
+    """x_(i+1) = x_i^2 chain with the final value as the public input."""
+    b = CircuitBuilder(field, log_n)
+    pub = b.public_input()
+    cells = [b.mul_gate() for _ in range(n_gates)]
+    for i in range(n_gates):
+        a_c, b_c, c_c = cells[i]
+        b.connect([a_c, b_c])  # square: both inputs are the same wire
+        if i + 1 < n_gates:
+            b.connect([c_c, cells[i + 1][0]])
+    b.connect([cells[-1][2], pub])
+    return b.build()
+
+
+def chain_witness(field, circuit, n_gates: int, x0: int):
+    """Witness for build_chain_circuit: the squaring chain from x0."""
+    p = field.p
+    w = [[0] * circuit.n for _ in range(COLUMNS)]
+    vals = [x0 % p]
+    for _ in range(n_gates):
+        vals.append(vals[-1] * vals[-1] % p)
+    out = vals[-1]
+    w[0][0] = out  # public row
+    for i in range(n_gates):
+        row = 1 + i
+        w[0][row] = vals[i]
+        w[1][row] = vals[i]
+        w[2][row] = vals[i + 1]
+    return w, [out]
+
+
+def make_fixture(log_n: int, batch: int, n_gates: int | None = None, device=None, timings: list | None = None):
+    """Set up the chain circuit at 2^log_n and prove `batch` witnesses
+    (x0 = 3 + i) with random.Random(20260820), on `device` (the card
+    unless "cpu"). timings, when given, receives {"setup": s} and one
+    dict of stage seconds a proof."""
+    import time
+
+    curve = PALLAS
+    fs = curve.scalar
+    n = 1 << log_n
+    if n_gates is None:
+        n_gates = max(1, min(n - 16, n // 2))
+    circuit = build_chain_circuit(fs, log_n, n_gates)
+    srs = load_srs("pallas", circuit.n)
+    t0 = time.perf_counter()
+    index = prover_host.setup(circuit, curve, srs["g"], _srs_h(srs), device=device)
+    if timings is not None:
+        timings.append({"setup": time.perf_counter() - t0})
+    rng = random.Random(20260820)
+    proofs = []
+    for i in range(batch):
+        w, pub = chain_witness(fs, circuit, n_gates, 3 + i)
+        st = {} if timings is not None else None
+        proofs.append(prover_host.prove(index, circuit, w, pub, srs["g"], _srs_h(srs), rng, device=device, timings=st))
+        if timings is not None:
+            timings.append(st)
+    return index, proofs
+
+
+def _srs_h(srs: dict) -> tuple[int, int]:
+    from ..fields.params import limbs_to_int
+
+    return (limbs_to_int(srs["h"][0]), limbs_to_int(srs["h"][1]))
+
+
+def _pt(p):
+    # a chunked commitment nests: [[hex, hex], ...]
+    if isinstance(p, list):
+        return [_pt(q) for q in p]
+    return None if p is None else [hex(p[0]), hex(p[1])]
+
+
+def _index_doc(index: VerifierIndexHost) -> dict:
+    doc = {
+        "log_n": index.domain.log_size,
+        "npub": index.npub,
+        "shifts": [hex(s) for s in index.shifts],
+        "sigma_comm": [_pt(p) for p in index.sigma_comm],
+        "coeff_comm": [_pt(p) for p in index.coeff_comm],
+        "sel_comm": {k: _pt(p) for k, p in index.sel_comm.items()},
+        "table_comm": [_pt(p) for p in index.table_comm],
+        "qlk_comm": _pt(index.qlk_comm),
+    }
+    if index.srs_len:  # chunked index
+        doc["srs_len"] = index.srs_len
+    return doc
+
+
+def _proof_doc(pr: HostProof) -> dict:
+    op = pr.opening
+    doc = {}
+    if pr.prev_challenges:  # carried accumulators (wrap proofs)
+        doc["prev"] = [[[hex(c) for c in chals], _pt(sg)] for chals, sg in pr.prev_challenges]
+    return doc | {
+        "w_comm": [_pt(p) for p in pr.w_comm],
+        "z_comm": _pt(pr.z_comm),
+        "s_comm": [_pt(p) for p in pr.s_comm],
+        "rt_comm": _pt(pr.rt_comm),
+        "zl_comm": _pt(pr.zl_comm),
+        "t_comm": [_pt(p) for p in pr.t_comm],
+        "evals": [[hex(e0), hex(e1)] for e0, e1 in pr.evals],
+        "ft_eval1": hex(pr.ft_eval1),
+        "public": [hex(x) for x in pr.public],
+        "lr": [[_pt(L), _pt(R)] for L, R in op.lr],
+        "delta": _pt(op.delta),
+        "z1": hex(op.z1),
+        "z2": hex(op.z2),
+        "sg": _pt(op.sg),
+        "chals": [hex(x) for x in op.chals],
+        "u_hints": {
+            "sel": op.u_hints.sel,
+            "y": hex(op.u_hints.y),
+            "wits": [hex(w) for w in op.u_hints.wits],
+            "alpha": hex(op.u_hints.alpha),
+        },
+    }
+
+
+def save_fixture(path: pathlib.Path, index, proofs) -> None:
+    doc = {"index": _index_doc(index), "proofs": [_proof_doc(p) for p in proofs]}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump(doc, f)
 
 
 def _unpt(v):

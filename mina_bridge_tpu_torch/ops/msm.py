@@ -37,7 +37,7 @@ from ..fields.params import LIMB_BITS, NLIMBS
 from ..parallel import mesh as pm
 from . import pmsm
 
-__all__ = ["msm", "msm_windowed", "msm_sharded", "SMALL_MSM_MAX"]
+__all__ = ["msm", "msm_batch", "msm_windowed", "msm_sharded", "SMALL_MSM_MAX"]
 
 SMALL_MSM_MAX = 4096
 _WIN = 4  # window bits of the small-N path (divides 260)
@@ -91,22 +91,47 @@ def _tree_sum(c: CurveSpec, pts: torch.Tensor) -> torch.Tensor:
 def _msm_small(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Each point's multiples 0..15 (14 adds), every 4-bit window's sum of
     the multiples its digits pick (a tree over the points, all 65 windows
-    at once), then a Horner walk over the windows on one lane."""
-    n = scalars.shape[0]
-    sh = torch.arange(LIMB_BITS, device=scalars.device)
-    bits = ((scalars.unsqueeze(-1) >> sh) & 1).reshape(n, -1)  # (N, 260) lsb-first
-    nib = (bits.reshape(n, -1, _WIN) << torch.arange(_WIN, device=scalars.device)).sum(-1)  # (N, 65)
-    table = [cv.identity(c, (n,), points.device), points]
+    at once), then a Horner walk over the windows on one lane per MSM.
+
+    scalars (..., N, 20), points (..., N, 3, L): one MSM for each index of
+    the leading axes, all run side by side. Returns (..., 3, L)."""
+    lead, n = scalars.shape[:-2], scalars.shape[-2]
+    scalars = scalars.reshape(-1, n, scalars.shape[-1])
+    points = points.reshape((-1,) + tuple(points.shape[-3:]))
+    r = scalars.shape[0]
+    dev = points.device
+    sh = torch.arange(LIMB_BITS, device=dev)
+    bits = ((scalars.unsqueeze(-1) >> sh) & 1).reshape(r, n, -1)  # (R, N, 260) lsb-first
+    nib = (bits.reshape(r, n, -1, _WIN) << torch.arange(_WIN, device=dev)).sum(-1)  # (R, N, 65)
+    nw = nib.shape[-1]
+    table = [cv.identity(c, (r, n), dev), points]
     for _ in range(2, 1 << _WIN):
         table.append(cv.add(c, table[-1], points))
-    table = torch.stack(table)  # (16, N, 3, L)
-    sums = _tree_sum(c, table[nib.T, torch.arange(n, device=points.device)])  # (65, 3, L)
-    acc = sums[-1]
-    for w in range(sums.shape[0] - 2, -1, -1):
+    table = torch.stack(table)  # (16, R, N, 3, L)
+    picked = table[nib.transpose(1, 2), torch.arange(r, device=dev)[:, None, None], torch.arange(n, device=dev)]
+    sums = _tree_sum(c, picked.reshape((r * nw, n) + tuple(points.shape[-2:]))).reshape((r, nw) + tuple(points.shape[-2:]))
+    acc = sums[:, -1]
+    for w in range(nw - 2, -1, -1):
         for _ in range(_WIN):
             acc = cv.double(c, acc)
-        acc = cv.add(c, acc, sums[w])
-    return acc
+        acc = cv.add(c, acc, sums[:, w])
+    return acc.reshape(lead + tuple(points.shape[-2:]))
+
+
+def msm_batch(c: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
+    """R MSMs at once, the prover's batched commitments on the CPU.
+
+    scalars: (R, M, 20) canonical; points: (N, 3, L), row r's MSM running
+    over points[idx[r]] ((R, M) indices; all N points, M = N, without
+    idx). Returns (R, 3, L). Up to SMALL_MSM_MAX points the rows run
+    through `_msm_small` side by side; above it each row is
+    `msm_windowed`."""
+    scalars = scalars.to(ffl.DTYPE)
+    R, m = scalars.shape[:2]
+    pts = points.expand((R,) + tuple(points.shape)) if idx is None else points[idx]  # (R, M, 3, L)
+    if m > SMALL_MSM_MAX:
+        return torch.stack([msm_windowed(c, scalars[r], pts[r]) for r in range(R)])
+    return _msm_small(c, scalars, pts)
 
 
 def _bucket_weighting(c: CurveSpec, prefix, dig_s, seg_end) -> torch.Tensor:

@@ -36,11 +36,7 @@ def _stage_twiddles(dom: Domain, inverse: bool, device: torch.device) -> tuple[t
     out = []
     half = 1
     while half < n:
-        w_len = pow(root, n // (2 * half), p)
-        ws = [1] * half
-        for j in range(1, half):
-            ws[j] = ws[j - 1] * w_len % p
-        out.append(torch.as_tensor(ffl.ints_to_limbs(ws, ffl.REP_LIMBS), device=device))
+        out.append(ffl.geometric(dom.field, 1, pow(root, n // (2 * half), p), half, device))
         half *= 2
     return tuple(out)
 

@@ -1,8 +1,10 @@
-"""Loader for the committed real-scale Pickles tip fixtures.
+"""The real-scale Pickles tip fixtures: proving, writing and loading them.
 
-Counterpart of the loading half of mina_bridge_tpu/pickles/fixtures.py
-(`fixture_path`, `_tip_undoc`, `load_tips`, `load_wrap_dindex`,
-`load_step_dindex`). fixtures/pickles_2e<wrap>_s2e<step>_b<B>.json.gz
+Counterpart of mina_bridge_tpu/pickles/fixtures.py (`make_tips`,
+`_tip_doc`, `save_tips`, `fixture_path`, `_tip_undoc`, `load_tips`,
+`load_wrap_dindex`, `load_step_dindex`). `make_tips` proves tip i with
+random.Random(0xF1C5 + i) and state hash 0x5A5A + 7 i, on the card
+unless "cpu", as the JAX package proved the committed files. fixtures/pickles_2e<wrap>_s2e<step>_b<B>.json.gz
 hold B tips (wrap 2^17 on Pallas, step 2^18 on Vesta) and both verifier
 indexes' commitments as hex-int JSON, so neither index is rebuilt from
 its circuit. `device_index` puts such a host index on a device (the toy
@@ -25,6 +27,47 @@ from . import verifier as pv
 
 def fixture_path(block_log_n: int, step_log_n: int, batch: int) -> pathlib.Path:
     return bf.FIXTURES / f"pickles_2e{block_log_n}_s2e{step_log_n}_b{batch}.json.gz"
+
+
+def make_tips(block_log_n: int, step_log_n: int, batch: int, state_hashes=None, rngs=None, device=None,
+              timings: list | None = None) -> list[pv.TipProof]:
+    """Prove `batch` tips binding distinct state hashes (pickles prove_tip);
+    timings, when given, receives each tip's prove_tip timings."""
+    import random
+
+    if state_hashes is None:
+        state_hashes = [0x5A5A + 7 * i for i in range(batch)]
+    tips = []
+    for i, sh in enumerate(state_hashes):
+        rng = rngs[i] if rngs else random.Random(0xF1C5 + i)
+        st = {} if timings is not None else None
+        tips.append(pv.prove_tip(sh, rng=rng, log_n=block_log_n, step_log_n=step_log_n, device=device, timings=st))
+        if timings is not None:
+            timings.append(st)
+    return tips
+
+
+def _tip_doc(tip: pv.TipProof) -> dict:
+    doc = {
+        "wrap": bf._proof_doc(tip.wrap),
+        "acc_prechals": [hex(c) for c in tip.step_acc_prechals],
+        "acc_sg": bf._pt(tip.step_acc_sg),
+    }
+    if tip.step is not None:
+        doc["step"] = bf._proof_doc(tip.step)
+    return doc
+
+
+def save_tips(path: pathlib.Path, block_log_n: int, step_log_n: int, tips: list[pv.TipProof], wrap_index=None,
+              step_index=None) -> None:
+    doc = {"block_log_n": block_log_n, "step_log_n": step_log_n, "tips": [_tip_doc(t) for t in tips]}
+    if wrap_index is not None:
+        doc["wrap_index"] = bf._index_doc(wrap_index)
+    if step_index is not None:
+        doc["step_index"] = bf._index_doc(step_index)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump(doc, f)
 
 
 def _tip_undoc(d: dict) -> pv.TipProof:

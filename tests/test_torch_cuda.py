@@ -2,8 +2,10 @@
 and K5) against their plain PyTorch versions on the card, the Pickles
 tips verify on the committed b2 fixture, the verifier service's
 Proof-of-Account and Proof-of-State batches, the operator's path (the
-SDK against the port's mock nodes), the NTT, and two ranks sharing the
-card over gloo (the sharded MSM). Exact: equal canonical limbs.
+SDK against the port's mock nodes), the NTT, two ranks sharing the
+card over gloo (the sharded MSM), and the prover (the batched commitment,
+the quotient and a toy proof, each equal to the CPU's). Exact: equal
+canonical limbs.
 Imports only the port, so it runs
 where JAX is not installed:
 
@@ -19,7 +21,7 @@ import torch
 from mina_bridge_tpu_torch.curves import point_kernels as pk
 from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA, mul
 from mina_bridge_tpu_torch.fields import chain_kernel, ffl
-from mina_bridge_tpu_torch.fields.params import FP, FQ
+from mina_bridge_tpu_torch.fields.params import FP, FQ, int_to_limbs
 from mina_bridge_tpu_torch.hash.poseidon_params import poseidon_spec
 from mina_bridge_tpu_torch.hash.transcript_kernel import transcript_blocks, transcript_blocks_plain
 
@@ -378,3 +380,99 @@ def test_two_ranks_one_card_gloo(dev, tmp_path):
         assert r["device"] == "cuda:0" and r["msm"]["per_rank"] == 256
         k3_k6 = ("padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan", "padd_mixed_select2")
         assert all(r["msm"]["launches"][k] > 0 for k in k3_k6)
+
+
+def _prover_circuit():
+    """A 2^6-row circuit with every gate kind and every lookup pattern."""
+    from mina_bridge_tpu_torch.kimchi import gadgets as gd
+    from mina_bridge_tpu_torch.kimchi.circuit import CircuitBuilder
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    b = CircuitBuilder(PALLAS.scalar, 7)
+    b.public_input()
+    b.set_lookup_table([0, 5, 9])
+    b.enable_xor(1)
+    b.enable_range(1)
+    b.set_runtime_table(2)
+    tg = pv._transcript_gadget(b, ["absorb"] * 3 + ["squeeze"])
+    pv._prechal_gadget(b, tg["squeeze"][0])
+    gd.scalar_mul_gadget(b, 5)
+    gd.endo_mul_gadget(b, 4)
+    b.complete_add()
+    b.lookup_row()
+    b.xor_gate()
+    b.range_gate()
+    b.lookup_rt_gate()
+    return b.build()
+
+
+def test_prover_commit_batch(dev):
+    """ipa.commit_many on the card (one pmsm a row, all points and an index
+    set a row) equals the plain batched MSM on the CPU."""
+    from mina_bridge_tpu_torch.commitment import ipa
+    from mina_bridge_tpu_torch.curves import curve as cv
+    from mina_bridge_tpu_torch.curves.srs import load_srs
+
+    g = load_srs("pallas", 256)["g"]
+    pts = ipa.srs_rep(PALLAS, g, "cpu")
+    sc = torch.as_tensor(ffl.ints_to_limbs(_ints(PALLAS.scalar.p, 3 * 256, 31))).reshape(3, 256, -1)
+    want = cv.to_affine_ints(PALLAS, ipa.commit_many(PALLAS, sc, pts))
+    assert cv.to_affine_ints(PALLAS, ipa.commit_many(PALLAS, sc.to(dev), pts.to(dev))) == want
+    idx = torch.stack([torch.arange(0, 256, 2), torch.arange(1, 256, 2)])
+    want = cv.to_affine_ints(PALLAS, ipa.commit_many(PALLAS, sc[:2, :128], pts, idx))
+    assert cv.to_affine_ints(PALLAS, ipa.commit_many(PALLAS, sc[:2, :128].to(dev), pts.to(dev), idx.to(dev))) == want
+
+
+def test_prover_quotient(dev):
+    """The tensor quotient on the card equals the CPU's on seeded inputs."""
+    from mina_bridge_tpu_torch.kimchi import prover_host as ph
+    from mina_bridge_tpu_torch.kimchi import prover_vec as pvec
+    from mina_bridge_tpu_torch.kimchi.circuit import shifts
+
+    circuit = _prover_circuit()
+    fs = PALLAS.scalar
+    n = circuit.n
+    rnd = iter(_ints(fs.p, 23 * n + 4, 32))
+    vals = [next(rnd) for _ in range(23 * n)]
+    beta, gamma, alpha, joint = (next(rnd) for _ in range(4))
+    alpha_pows = [pow(alpha, k, fs.p) for k in range(ph.N_ALPHAS)]
+    j_pows = [pow(joint, k, fs.p) for k in range(4)]
+    out = []
+    for d in ("cpu", dev):
+        x = ffl.from_ints(fs, vals, d).reshape(23, n, ffl.REP_LIMBS)
+        index = ph.VerifierIndexHost(
+            curve=PALLAS, domain=circuit.domain, npub=1, sigma_comm=[], coeff_comm=[], sel_comm={}, table_comm=[],
+            qlk_comm=None, shifts=shifts(fs, circuit.domain.log_size), **ph.index_polys(circuit, d),
+        )
+        t = pvec.quotient_coeffs(index, circuit, x[:15], x[15], x[16:21], x[21], x[22], x[0], x[1], beta, gamma,
+                                 alpha_pows, j_pows, gamma * (1 + beta) % fs.p, pow(1 + beta, 4, fs.p))
+        out.append(ffl.to_ints(fs, t))
+    assert out[0] == out[1]
+
+
+def test_prover_toy_proof(dev):
+    """setup and prove of the chain circuit at n = 2^5 on the card equal
+    the same on the CPU in their JSON documents, and the port's verify
+    accepts the card's proof."""
+    import random
+
+    from mina_bridge_tpu_torch.curves.srs import load_srs
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.kimchi import prover_host as ph
+    from mina_bridge_tpu_torch.kimchi import verifier as kv
+
+    fs = PALLAS.scalar
+    circuit = bf.build_chain_circuit(fs, 5, 16)
+    srs = load_srs("pallas", circuit.n)
+    h = bf._srs_h(srs)
+    docs = []
+    for d in ("cpu", dev):
+        index = ph.setup(circuit, PALLAS, srs["g"], h, device=str(d))
+        w, pub = bf.chain_witness(fs, circuit, 16, 3)
+        proof = ph.prove(index, circuit, w, pub, srs["g"], h, random.Random(5), device=str(d))
+        docs.append((bf._index_doc(index), bf._proof_doc(proof)))
+    assert docs[0] == docs[1]
+    dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
+    weights = torch.as_tensor(np.array([[int_to_limbs(v, 20) for v in (3, 5)]]), device=dev)
+    hint = kv.host_public_commitments(dindex, [proof.public])
+    assert kv.verify(dindex, kv.DeviceProofs.from_host([proof], dev), weights, pub_comm_hint=hint) is True
