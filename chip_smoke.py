@@ -80,19 +80,27 @@ Phases (any failure exits non-zero and prints no result):
      validate_account calls at depth 35 (bridge/fixtures.make_account_batch
      from --seed, every second a zkApp; K2 launched in each) each leave the
      account's pub input on the contract, and one with its ledger hash ^ 1
-     is rejected with the JAX reason. One call of each kind under
-     torch.profiler (device busy time, idle share). Then the CLI, as an
-     operator runs it: `python -m mina_bridge_tpu_torch.cli submit-state
-     --devnet`, `submit-account <pk> <state-hash> --devnet` (exit 0, settled
-     on the contracts) and submit-state against a node serving a foreign
-     tip (exit 1, the contract unchanged), each a process of its own
-     against the nodes served over HTTP on 127.0.0.1; their walls (cold:
-     imports, kernel libraries, SRS, indexes) and output
-     (chiprun_out/cli_*.txt), and a fresh process's import and CUDA-context
-     seconds. A `{"bridge": {...}}` line: per-call medians and stage splits
-     (the in-process mock nodes' work a stage of its own), launches per
-     call, sleeps counted in the timed calls, the profiles, the CLI's exit
-     codes and walls;
+     is rejected with the JAX reason. The SDK's service, as the CLI's,
+     verifies against the toy indexes that pickles.block_setup /
+     step_setup build on the card (timed before phase 5). One call of each
+     kind under torch.profiler (device busy time, idle share). Then the
+     CLI, which proves its own toy tip for the candidate chain's tip hash
+     (pickles.prove_tip on the card) as the JAX CLI does: once in-process
+     (`cli.main`, counters set to 0 just before it: the launches of a
+     submit-state call with its tip proof), then as an operator runs it:
+     `python -m mina_bridge_tpu_torch.cli submit-state --devnet`,
+     `submit-account <pk> <state-hash> --devnet` (exit 0, settled on the
+     contracts) and submit-state for a candidate chain that loses to the
+     bridged tip under the consensus check (the contract rooted at a tip
+     of blockchain length 1,000; exit 1 with the JAX reason, the contract
+     unchanged), each a process of its own against the nodes served over
+     HTTP on 127.0.0.1; their walls (cold: imports, kernel libraries, SRS,
+     the toy setups, the tip proof) and output (chiprun_out/cli_*.txt), and
+     a fresh process's import and CUDA-context seconds. A
+     `{"bridge": {...}}` line: per-call medians and stage splits (the
+     in-process mock nodes' work a stage of its own), launches per call,
+     sleeps counted in the timed calls, the profiles, the CLI's exit codes
+     and walls;
  10. the multi-rank layer (parallel/dryrun.py, each rank a spawned process
      that reads its inputs from build/parallel/): (a) world size 1 over
      NCCL: the 2^16 MSM through ops/msm.py::msm_sharded over a pt of 1 and
@@ -123,17 +131,39 @@ Phases (any failure exits non-zero and prints no result):
      inputs in proof 0 (the 2^16 inversions) and pmsm's in its opening
      recorded and, after the counters were read, held against the plain
      versions as phase 5 holds its inputs (`check_prover_inputs`); (b) the
-     other 7 toy Proof-of-States proved again (random.Random(seed) of each
+     other 7 toy Proof-of-States proved again by
+     bridge/fixtures.py::make_pos_fixture (random.Random(seed) of each
      entry, as scripts/make_pos_fixture.py made them), each equal to the
-     committed bytes, both index docs equal to the file's, the service
-     accepting all 8; (c) make_tips(17, 18, 1): tip 0 and both index docs
+     committed bytes, both index docs equal to the file's, a
+     default-constructed CudaVerifierService() (the toy indexes built on
+     the card) accepting all 8; (c) make_tips(17, 18, 1): tip 0 and both index docs
      equal to fixtures/pickles_2e17_s2e18_b2.json.gz, batch_verify_tips
      accepts; the setup, step proof, its check and wrap proof seconds;
      K1's inputs in the tip (the 2^18 and 2^17 inversions among them)
      held against the plain version in the same way. A
      `{"prover": ...}` line; the kernel rows gain the prover's launches
      per 2^16 proof and per real-scale tip;
- 12. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+ 12. the Sudoku consumer (mina_bridge_tpu_torch/example): the puzzle of
+     fixtures/sudoku_2e11.json.gz from its seed, the port's SudokuCircuit
+     (2^11 rows) set up and its solution proven on the card, counters set
+     to 0 just before each call and read just after; the index and the
+     proof equal the fixture's document for document (the JAX package's
+     host prover wrote it, scripts/make_sudoku_fixture.py); the batched
+     verify accepts the proof at B = 1 and rejects it with its puzzle hash
+     + 1; K1's and the opening's pmsm inputs held against the plain
+     versions as in phase 11; a `{"sudoku": ...}` line;
+ 13. real-scale Proof-of-State (fixtures/pos_2e17_s2e18_b8.json.gz: 8
+     proofs whose tips, wrap 2^17 / step 2^18, bind each chain's own tip
+     hash, banked on the card by scripts/torch_make_fixtures.py pos): its
+     index docs equal fixtures/pickles_2e17_s2e18_b8.json.gz's, so phase
+     7's device indexes serve; counters set to 0, the service accepts all
+     8 (median of 3, its METRICS stage split), and the second batch of
+     phase 8 rejects exactly proofs 1, 3 and 5 with the JAX reasons (its
+     tips calls counted); the tips verify alone on these tips and on phase
+     7's (made-up state hashes), each with its host hints' seconds; one
+     update_bridge_chain through the SDK on fresh mock nodes at real scale
+     (host ms); a `{"real_pos": ...}` line;
+ 14. a `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
      `{"ok": true, "device": {...}}`.
 
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -142,6 +172,7 @@ Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -198,10 +229,13 @@ POS_TAMPERS = {1: "state hash mismatch", 3: "tip proof binds wrong hash", 5: "ti
 BRIDGE_ACCOUNTS = 64  # phase 9's validate_account calls
 BRIDGE_ORACLE = 8  # of them held against the host oracle
 STATE_REJECT = "state proof rejected: tip proof binds wrong hash"
+CLI_STATE_REJECT = "state proof rejected: consensus: not better"  # phase 9's losing chain
 ACCOUNT_REJECT = "account proof rejected: merkle root != ledger hash"
 STATE_PATH = ("pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select_scan",
               "padd_mixed_select2")
 MSM_PATH = STATE_PATH[2:]  # K3-K6
+SUDOKU_FIXTURE = ROOT / "fixtures" / "sudoku_2e11.json.gz"  # phase 12
+REAL_POS = (17, 18, 8)  # phase 13: wrap and step log2 n and proofs of fixtures/pos_2e17_s2e18_b8.json.gz
 
 
 def log(*a):
@@ -891,14 +925,14 @@ def tips_phase(ctx: dict, rows: list[dict]) -> dict:
     calls = []
     orig = pv.batch_verify_tips
 
-    def counted(*a):
+    def counted(*a, **kw):
         calls.append(a[1].shape[0])
-        return orig(*a)
+        return orig(*a, **kw)
 
     pv.batch_verify_tips = counted
     try:
         t0 = time.time()
-        verdicts = vs._tip_verdicts(range(B), forged_one, rw, dindex, step_dindex)
+        verdicts = vs._tip_verdicts(range(B), forged_one, rw, dindex, step_dindex, TIPS[0], TIPS[1])
         serve_s = time.time() - t0
     finally:
         pv.batch_verify_tips = orig
@@ -1022,11 +1056,11 @@ def service_inputs(seed: int, dev) -> dict:
     log(f"service inputs: {ACCOUNTS} accounts in {accounts_s:.1f} s; Proof-of-State fixture (wrap 2^{dindex.log_n}, "
         f"step 2^{step_dindex.log_n}, B = {B}) and both indexes in {states_s:.1f} s")
     with Recorder(only={"transcript_blocks"}) as acc_rec:
-        res = aligned.CudaVerifierService(dindex, step_dindex).submit_accounts(pubs, proofs)
+        res = aligned.CudaVerifierService(dindex=dindex, step_dindex=step_dindex).submit_accounts(pubs, proofs)
     if not all(r.ok for r in res):
         raise RuntimeError(f"the service rejected honest accounts: {[(i, r.reason) for i, r in enumerate(res) if not r.ok][:5]}")
     with Recorder() as st_rec:
-        res = aligned.CudaVerifierService(dindex, step_dindex).submit_states(fx["pubs"], fx["proofs"], tips, rw)
+        res = aligned.CudaVerifierService(dindex=dindex, step_dindex=step_dindex).submit_states(fx["pubs"], fx["proofs"], tips, rw)
     if not all(r.ok for r in res):
         raise RuntimeError(f"the service rejected honest state proofs: {[(i, r.reason) for i, r in enumerate(res) if not r.ok]}")
     # K2's checked and timed states-call inputs are the hashing's, over all
@@ -1108,6 +1142,23 @@ def group_costs(new_service, pubs, proofs, zkapp) -> dict:
     return out
 
 
+def pos_tampers(pubs: list, tips: list) -> tuple[list, list]:
+    """The second Proof-of-State batch (POS_TAMPERS): proof 1 with one
+    candidate hash ^ 1, proof 3 with proof 4's tip, proof 5 with its wrap
+    opening's z1 + 1."""
+    from mina_bridge_tpu_torch.curves.host import PALLAS
+
+    pubs2, tips2 = list(pubs), list(tips)
+    cand = list(pubs2[1].candidate_chain_state_hashes)
+    cand[3] ^= 1
+    pubs2[1] = dataclasses.replace(pubs2[1], candidate_chain_state_hashes=cand)
+    tips2[3] = tips[4]
+    wrap = tips[5].wrap
+    opening = dataclasses.replace(wrap.opening, z1=(wrap.opening.z1 + 1) % PALLAS.scalar.p)
+    tips2[5] = dataclasses.replace(tips[5], wrap=dataclasses.replace(wrap, opening=opening))
+    return pubs2, tips2
+
+
 def service_phase(ctx: dict, rows: list[dict]) -> dict:
     """Phase 8 after phase 7 (see the module docstring). Raises on any
     wrong verdict, missing launch or failed inclusion proof; fills the K2
@@ -1116,14 +1167,13 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
     from mina_bridge_tpu_torch.bridge import aligned
     from mina_bridge_tpu_torch.bridge import fixtures as bfx
     from mina_bridge_tpu_torch.bridge.keccak import keccak256
-    from mina_bridge_tpu_torch.curves.host import PALLAS
     from mina_bridge_tpu_torch.pickles import verifier as pv
 
     dindex, step_dindex, rw, tips, fx = ctx["dindex"], ctx["step_dindex"], ctx["rw"], ctx["tips"], ctx["fx"]
     pubs, proofs = ctx["account_pubs"], ctx["account_proofs"]
 
     def new_service():
-        return aligned.CudaVerifierService(dindex, step_dindex)
+        return aligned.CudaVerifierService(dindex=dindex, step_dindex=step_dindex)
 
     svc = new_service()  # the batch that finalize_batch commits
 
@@ -1174,10 +1224,10 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
     tips_k2 = []
     orig = pv.batch_verify_tips
 
-    def counted(*a):
+    def counted(*a, **kw):
         k2 = kernels.launches["transcript_blocks"]
         try:
-            return orig(*a)
+            return orig(*a, **kw)
         finally:
             tips_k2.append(kernels.launches["transcript_blocks"] - k2)
 
@@ -1197,15 +1247,7 @@ def service_phase(ctx: dict, rows: list[dict]) -> dict:
         missing = [k for k in path_kernels if counts_s[k] == 0]
         if missing:
             raise RuntimeError(f"kernels never launched in the states call: {missing}")
-        tips2 = list(tips)
-        pubs2 = list(fx["pubs"])
-        cand = list(pubs2[1].candidate_chain_state_hashes)
-        cand[3] ^= 1
-        pubs2[1] = dataclasses.replace(pubs2[1], candidate_chain_state_hashes=cand)
-        tips2[3] = tips[4]
-        wrap = tips[5].wrap
-        opening = dataclasses.replace(wrap.opening, z1=(wrap.opening.z1 + 1) % PALLAS.scalar.p)
-        tips2[5] = dataclasses.replace(tips[5], wrap=dataclasses.replace(wrap, opening=opening))
+        pubs2, tips2 = pos_tampers(fx["pubs"], tips)
         calls_before = len(tips_k2)
         t0 = time.time()
         res2 = svc.submit_states(pubs2, fx["proofs"], tips2, rw)
@@ -1324,9 +1366,32 @@ def bridge_nodes(fx: dict, b: int, tip_of: int | None = None):
     return mc.MockEthNode(pub.bridge_tip_state_hash), mina
 
 
-def bridge_sdk(eth_node, mina_node, indexes, dev):
+def losing_nodes(fx: dict, b: int):
+    """Fresh port mock nodes for fixture proof b whose candidate chain loses
+    to the bridged tip under the consensus check: the Ethereum node is
+    rooted at a state of blockchain length 1,000 (bridge/fixtures.py
+    make_state, the candidate's lock checkpoint: a short-range fork),
+    which the Mina node serves under its hash before the 16 candidates."""
+    import random
+
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.bridge import mina_types as mt
+    from mina_bridge_tpu_torch.bridge import mock_chain as mc
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
+    from mina_bridge_tpu_torch.bridge.pickles_wire import TIP_PROOF
+
+    pub, proof = fx["pubs"][b], fx["proofs"][b]
+    longer = bfx.make_state(random.Random(0x10C6), 555, 1000, 900)
+    longer_hash = pm.host_full_state_hash(longer)
+    mina = mc.MockMinaNode([mt.PROTOCOL_STATE.encode(longer)] + proof.candidate_chain_states,
+                           TIP_PROOF.encode(proof.candidate_tip_proof), [longer_hash] + pub.candidate_chain_state_hashes)
+    return mc.MockEthNode(longer_hash), mina
+
+
+def bridge_sdk(eth_node, mina_node, dev, indexes=None):
     """The CLI's SDK (cli.make_sdk: the batch root posted to the registry)
-    over in-process transports, signing with the Anvil key."""
+    over in-process transports, signing with the Anvil key; its service
+    builds the toy indexes, as the CLI's, unless `indexes` are given."""
     from mina_bridge_tpu_torch import cli
     from mina_bridge_tpu_torch.bridge import eth, mina_graphql
     from mina_bridge_tpu_torch.utils.constants import ANVIL_CHAIN_ID, ANVIL_PRIVATE_KEY
@@ -1442,26 +1507,31 @@ def profiled(fn) -> dict:
 
 
 def bridge_inputs(seed: int, dev) -> dict:
-    """Phase 9's inputs, before phase 5: the CLI's verifier indexes
-    (cli.verifier_indexes on the card), BRIDGE_ACCOUNTS accounts from `seed`
-    (account_inputs), then one submit-state call (fixture proof 0) with
-    every kernel's inputs recorded and one submit-account call (account 0,
-    a zkApp) with K2's, each on fresh mock nodes."""
+    """Phase 9's inputs, before phase 5: the toy wrap (2^10) and step (2^4)
+    setups the CLI's service verifies against (pickles.block_setup /
+    step_setup on the card, built once per process), BRIDGE_ACCOUNTS
+    accounts from `seed` (account_inputs), then one submit-state call
+    (fixture proof 0) with every kernel's inputs recorded and one
+    submit-account call (account 0, a zkApp) with K2's, each on fresh mock
+    nodes."""
     import torch
 
-    from mina_bridge_tpu_torch import cli
     from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
 
     t_start = t0 = time.time()
-    indexes = cli.verifier_indexes(str(dev))
-    fx = bfx.load_pos_fixture()
+    pv.step_setup(pv.STEP_LOG_N, str(dev))
     torch.cuda.synchronize()
-    indexes_s = time.time() - t0
+    t1 = time.time()
+    pv.block_setup(pv.BLOCK_LOG_N, pv.STEP_LOG_N, str(dev))
+    torch.cuda.synchronize()
+    toy_setup_s = {"step": t1 - t0, "wrap": time.time() - t1}
+    fx = bfx.load_pos_fixture()
     t0 = time.time()
     pubs, proofs, zkapp = account_inputs(seed, dev, BRIDGE_ACCOUNTS, BRIDGE_ORACLE)
     accounts_s = time.time() - t0
     eth_node, mina_node = bridge_nodes(fx, 0)
-    sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+    sdk = bridge_sdk(eth_node, mina_node, dev)
     keys = add_accounts(mina_node, pubs[:1], proofs[:1])
     with Recorder() as st_rec:
         ok = sdk.update_bridge_chain(fx["proofs"][0].bridge_tip_state)
@@ -1469,10 +1539,38 @@ def bridge_inputs(seed: int, dev) -> dict:
         sdk.validate_account(keys[0], hex(fx["pubs"][0].candidate_chain_state_hashes[-1]))
     if ok is not True or eth_node.state.state_hashes != fx["pubs"][0].candidate_chain_state_hashes:
         raise RuntimeError("the recorded submit-state call did not bridge the chain")
-    log(f"bridge inputs: indexes and fixture in {indexes_s:.1f} s, {BRIDGE_ACCOUNTS} accounts in {accounts_s:.1f} s")
-    return {"dev": dev, "fx": fx, "indexes": indexes, "accounts": (pubs, proofs, zkapp),
+    log(f"bridge inputs: toy setups step {toy_setup_s['step']:.2f} s, wrap {toy_setup_s['wrap']:.2f} s; "
+        f"{BRIDGE_ACCOUNTS} accounts in {accounts_s:.1f} s")
+    return {"dev": dev, "fx": fx, "accounts": (pubs, proofs, zkapp), "toy_setup_s": toy_setup_s,
             "recs": {"sdk_state_call": st_rec, "sdk_account_call": acc_rec},
-            "inputs_s": {"indexes": indexes_s, "accounts": accounts_s, "all": time.time() - t_start}}
+            "inputs_s": {"toy_setups": sum(toy_setup_s.values()), "accounts": accounts_s, "all": time.time() - t_start}}
+
+
+def cli_vars(eth_url: str, mina_url: str, eth_node) -> dict:
+    """The CLI's settings for the served nodes (utils/env.py)."""
+    return {"MINA_RPC_URL": mina_url + "/graphql", "ETH_RPC_URL": eth_url,
+            "STATE_SETTLEMENT_ETH_ADDR": "0x" + eth_node.state_contract_addr.hex(),
+            "ACCOUNT_VALIDATION_ETH_ADDR": "0x" + eth_node.account_contract_addr.hex()}
+
+
+CLI_UNSET = ("PRIVATE_KEY", "KEYSTORE_PATH", "NETWORK", "ETH_CHAIN_ID")  # the Anvil key, devnet
+
+
+@contextlib.contextmanager
+def cli_env(eth_url: str, mina_url: str, eth_node):
+    """This process's environment as run_cli gives a CLI process, restored
+    after the block."""
+    import os
+
+    saved = dict(os.environ)
+    for k in CLI_UNSET:
+        os.environ.pop(k, None)
+    os.environ.update(cli_vars(eth_url, mina_url, eth_node))
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
 
 
 def run_cli(args: list[str], eth_url: str, mina_url: str, eth_node, name: str) -> tuple[int, float]:
@@ -1481,10 +1579,8 @@ def run_cli(args: list[str], eth_url: str, mina_url: str, eth_node, name: str) -
     chiprun_out/cli_<name>.txt. Returns (exit code, wall seconds)."""
     import os
 
-    env = {k: v for k, v in os.environ.items() if k not in ("PRIVATE_KEY", "KEYSTORE_PATH", "NETWORK", "ETH_CHAIN_ID")}
-    env.update(MINA_RPC_URL=mina_url + "/graphql", ETH_RPC_URL=eth_url,
-               STATE_SETTLEMENT_ETH_ADDR="0x" + eth_node.state_contract_addr.hex(),
-               ACCOUNT_VALIDATION_ETH_ADDR="0x" + eth_node.account_contract_addr.hex())
+    env = {k: v for k, v in os.environ.items() if k not in CLI_UNSET}
+    env.update(cli_vars(eth_url, mina_url, eth_node))
     t0 = time.time()
     proc = subprocess.run([sys.executable, "-m", "mina_bridge_tpu_torch.cli", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -1529,9 +1625,10 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
     from mina_bridge_tpu_torch.bridge import fixtures as bfx
     from mina_bridge_tpu_torch.bridge import mock_chain as mc
     from mina_bridge_tpu_torch.bridge.sol_codec import encode_account_pub_inputs_evm
+    from mina_bridge_tpu_torch.pickles import verifier as pv
 
     t_phase = time.time()
-    fx, indexes, dev = ctx["fx"], ctx["indexes"], ctx["dev"]
+    fx, dev = ctx["fx"], ctx["dev"]
     pubs, proofs, zkapp = ctx["accounts"]
     B = len(fx["pubs"])
 
@@ -1558,7 +1655,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
     with SleepCount() as sleeps, PendingSpy() as spy:
         for b in range(B):
             eth_node, mina_node = bridge_nodes(fx, b)
-            sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+            sdk = bridge_sdk(eth_node, mina_node, dev)
             tip_state = fx["proofs"][b].bridge_tip_state
             with StageClock(stage_sites("state")) as clock:
                 ok, ms, counts = timed(lambda: sdk.update_bridge_chain(tip_state))
@@ -1576,7 +1673,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
             repeat_ms.append(ms)
             eth_node, mina_node = bridge_nodes(fx, b, tip_of=(b + 1) % B)
             before = list(eth_node.state.state_hashes)
-            forged_ms.append(rejected(lambda: bridge_sdk(eth_node, mina_node, indexes, dev).update_bridge_chain(tip_state),
+            forged_ms.append(rejected(lambda: bridge_sdk(eth_node, mina_node, dev).update_bridge_chain(tip_state),
                                       STATE_REJECT))
             if eth_node.state.state_hashes != before or eth_node.nonces or eth_node.registry.roots:
                 raise RuntimeError(f"proof {b}: the forged tip changed the contract")
@@ -1586,7 +1683,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         # ---- submit-account through the SDK, 64 accounts on one pair of nodes ----
         first_account = len(spy.batches)
         eth_node, mina_node = bridge_nodes(fx, 0)
-        sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+        sdk = bridge_sdk(eth_node, mina_node, dev)
         keys = add_accounts(mina_node, pubs, proofs)
         state_hash = hex(fx["pubs"][0].candidate_chain_state_hashes[-1])
         acc_ms, acc_counts, acc_stages = [], [], []
@@ -1627,7 +1724,7 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
 
     # ---- device busy time of one call of each kind ----
     eth_node, mina_node = bridge_nodes(fx, 0)
-    sdk = bridge_sdk(eth_node, mina_node, indexes, dev)
+    sdk = bridge_sdk(eth_node, mina_node, dev)
     [key] = add_accounts(mina_node, pubs[:1], proofs[:1])
     profile = {"submit_state": profiled(lambda: sdk.update_bridge_chain(fx["proofs"][0].bridge_tip_state)),
                "submit_account": profiled(lambda: sdk.validate_account(key, state_hash))}
@@ -1635,8 +1732,17 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         raise RuntimeError("the profiled calls did not settle")
     log(f"profiled: {profile}")
 
-    # ---- the CLI, as an operator runs it, against the nodes over HTTP ----
+    # ---- the CLI: in-process, counted, then as an operator runs it, over HTTP ----
+    from mina_bridge_tpu_torch import cli
+
     cli_runs = {}
+    eth_node, mina_node = bridge_nodes(fx, 0)
+    with mc.serve(eth_node) as eth_url, mc.serve(mina_node) as mina_url, cli_env(eth_url, mina_url, eth_node):
+        rc, cli_ms, cli_counts = timed(lambda: cli.main(["submit-state", "--devnet"], device=str(dev)))
+    missing = [k for k in STATE_PATH if cli_counts[k] == 0]
+    if rc != 0 or eth_node.state.state_hashes != fx["pubs"][0].candidate_chain_state_hashes or missing:
+        raise RuntimeError(f"the in-process CLI submit-state gave {rc}, kernels never launched: {missing}")
+    log(f"CLI submit-state in-process, its toy tip proven: {cli_ms:.1f} ms; launches {cli_counts}")
     eth_node, mina_node = bridge_nodes(fx, 0)
     [key] = add_accounts(mina_node, pubs[:1], proofs[:1])
     with mc.serve(eth_node) as eth_url, mc.serve(mina_node) as mina_url:
@@ -1644,24 +1750,28 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         stored = list(eth_node.state.state_hashes)
         cli_runs["submit_account"] = run_cli(["submit-account", key, state_hash, "--devnet"], eth_url, mina_url,
                                              eth_node, "submit_account")
-    forged_eth, forged_mina = bridge_nodes(fx, 0, tip_of=1)
-    with mc.serve(forged_eth) as eth_url, mc.serve(forged_mina) as mina_url:
-        cli_runs["submit_state_foreign_tip"] = run_cli(["submit-state", "--devnet"], eth_url, mina_url, forged_eth,
-                                                       "submit_state_foreign_tip")
+    losing_eth, losing_mina = losing_nodes(fx, 0)
+    root = losing_eth.state.state_hashes[-1]
+    with mc.serve(losing_eth) as eth_url, mc.serve(losing_mina) as mina_url:
+        cli_runs["submit_state_losing_chain"] = run_cli(["submit-state", "--devnet"], eth_url, mina_url, losing_eth,
+                                                        "submit_state_losing_chain")
     codes = {k: rc for k, (rc, _) in cli_runs.items()}
-    if codes != {"submit_state": 0, "submit_account": 0, "submit_state_foreign_tip": 1}:
+    if codes != {"submit_state": 0, "submit_account": 0, "submit_state_losing_chain": 1}:
         raise RuntimeError(f"CLI exit codes {codes} (chiprun_out/cli_*.txt)")
     if stored != fx["pubs"][0].candidate_chain_state_hashes or eth_node.account.validated != [
             encode_account_pub_inputs_evm(pubs[0])]:
         raise RuntimeError("the CLI's calls did not settle on the contracts")
-    if forged_eth.state.state_hashes[-1] != fx["pubs"][0].bridge_tip_state_hash or forged_eth.nonces:
-        raise RuntimeError("the CLI's foreign-tip call changed the contract")
+    if losing_eth.state.state_hashes[-1] != root or losing_eth.nonces or losing_eth.registry.roots:
+        raise RuntimeError("the CLI's losing-chain call changed the contract")
+    if CLI_STATE_REJECT not in (OUT / "cli_submit_state_losing_chain.txt").read_text():
+        raise RuntimeError(f"the CLI's losing-chain call did not fail with {CLI_STATE_REJECT!r}")
     log(f"CLI: {cli_runs}")
     cold = cold_start()
     log(f"a fresh process: {cold}")
 
     for row in rows:
         row["launches_per_submit_state"] = state_counts[0][row["name"]]
+        row["launches_per_cli_submit_state"] = cli_counts[row["name"]]
         row["launches_per_submit_account"] = {g: sorted({acc_counts[i][row["name"]] for i, z in enumerate(zkapp) if z == w})
                                               for g, w in (("plain", False), ("zkapp", True))}
         if row["name"] == "transcript_blocks":
@@ -1669,7 +1779,8 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
             row["service"]["sdk_account_call"]["launches"] = acc_counts[0]["transcript_blocks"]
     median_stages = lambda stages: {k: float(np.median([s[k] for s in stages])) * 1e3 for k in stages[0]}
     return {
-        "fixture": str(bfx.POS_FIXTURE.relative_to(ROOT)), "wrap_log_n": indexes[0].log_n, "step_log_n": indexes[1].log_n,
+        "fixture": str(bfx.POS_FIXTURE.relative_to(ROOT)), "wrap_log_n": pv.BLOCK_LOG_N, "step_log_n": pv.STEP_LOG_N,
+        "toy_setup_s": ctx["toy_setup_s"],
         "submit_state": {"calls": B, "ms_median": float(np.median(state_ms)), "ms": state_ms,
                          "stages_ms_median": median_stages(state_stages), "launches": state_counts[0],
                          "repeat_ms_median": float(np.median(repeat_ms)), "foreign_tip_ms_median": float(np.median(forged_ms)),
@@ -1683,6 +1794,8 @@ def bridge_phase(ctx: dict, rows: list[dict]) -> dict:
         "sleeps_in_timed_calls": sleeps.n,
         "profile": profile,
         "cli": {k: {"exit": rc, "wall_s": wall} for k, (rc, wall) in cli_runs.items()},
+        "cli_in_process": {"exit": 0, "ms": cli_ms, "launches": cli_counts},
+        "cli_losing_chain_reason": CLI_STATE_REJECT,
         "cold_start_s": cold,
         "inputs_s": ctx["inputs_s"],
         "phase_s": time.time() - t_phase,
@@ -1907,57 +2020,48 @@ def check_prover_inputs(rec: Recorder, rows: list[dict], where: str) -> list:
     return out
 
 
-def pos_fixture_doc() -> dict:
-    import gzip
-
-    with gzip.open(ROOT / "fixtures" / "pos_2e10_s2e4_b8.json.gz", "rt") as f:
-        return json.load(f)
-
-
-def regen_state_proof(entry: dict, dev, timings: dict | None = None):
-    """One Proof-of-State of the toy fixture proved again on the card as
-    scripts/make_pos_fixture.py made it: random.Random(seed), the chain,
-    then prove_tip on the chain's tip. Raises unless the pub input and the
-    proof (its tip included) encode to the committed bytes."""
-    import random
-
+def toy_pos_entries(doc: dict, dev, start: int, count: int | None = None, timings: list | None = None) -> list:
+    """Toy Proof-of-States start .. of the committed fixture proved again on
+    the card by bridge/fixtures.py::make_pos_fixture (as
+    scripts/make_pos_fixture.py made them). Raises unless each pub input
+    and proof (its tip included) encodes to the committed bytes and both
+    index docs equal the file's. Returns [(pub, proof, tip)]."""
     from mina_bridge_tpu_torch.bridge import fixtures as bfx
-    from mina_bridge_tpu_torch.bridge import pickles_wire
-    from mina_bridge_tpu_torch.pickles import verifier as pv
+    from mina_bridge_tpu_torch.bridge import proof_model as pm
 
-    rng = random.Random(entry["seed"])
-    pub, proof, _, _ = bfx.make_state_proof(rng)
-    tip = pv.prove_tip(pub.candidate_chain_state_hashes[-1], rng, device=str(dev), timings=timings)
-    proof = dataclasses.replace(proof, candidate_tip_proof=pickles_wire.tip_doc(tip))
-    if pub.encode().hex() != entry["pub"] or proof.encode().hex() != entry["proof"]:
-        raise RuntimeError(f"toy Proof-of-State (seed {entry['seed']}) differs from the committed one")
-    return pub, proof, tip
+    got = bfx.make_pos_fixture(doc["seed"], len(doc["proofs"]), doc["block_log_n"], doc["step_log_n"], str(dev),
+                               start=start, count=count, timings=timings)
+    want = doc["proofs"][start:start + len(got["proofs"])]
+    for g, w in zip(got["proofs"], want):
+        if g != w:
+            raise RuntimeError(f"toy Proof-of-State (seed {w['seed']}) differs from the committed one")
+    if (got["wrap_index"], got["step_index"]) != (doc["wrap_index"], doc["step_index"]):
+        raise RuntimeError("the toy wrap or step index differs from the fixture's")
+    out = []
+    for e in got["proofs"]:
+        proof = pm.MinaStateProof.decode(bytes.fromhex(e["proof"]))
+        out.append((pm.MinaStatePubInputs.decode(bytes.fromhex(e["pub"])), proof, proof.tip_proof()))
+    return out
 
 
-def prover_inputs(seed: int, dev) -> dict:
-    """Phase 11's first part, before phase 5: the toy wrap (2^10) and step
-    (2^4) setups on the card, then toy tip 0 of the Proof-of-State fixture
-    proved again with the inputs of K1 (the z and z_L inversions) and of
-    pmsm's kernels (every commitment, the IPA's L, R and sg) recorded:
-    they join phase 5's exact checks."""
+def prover_inputs(seed: int, dev, toy_setup_s: dict) -> dict:
+    """Phase 11's first part, before phase 5 (the toy setups are phase 9's
+    inputs'): toy tip 0 of the Proof-of-State fixture proved again with the
+    inputs of K1 (the z and z_L inversions) and of pmsm's kernels (every
+    commitment, the IPA's L, R and sg) recorded: they join phase 5's exact
+    checks."""
     import torch
 
-    from mina_bridge_tpu_torch.pickles import verifier as pv
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
 
-    doc = pos_fixture_doc()
+    doc = bf.read_doc(bfx.POS_FIXTURE)
     t0 = time.time()
-    pv.step_setup(doc["step_log_n"], str(dev))
-    t1 = time.time()
-    pv.wrap_setup(doc["block_log_n"], doc["step_log_n"], str(dev))
-    torch.cuda.synchronize()
-    t2 = time.time()
     with Recorder(only=PROVER_SITES) as rec:
-        first = regen_state_proof(doc["proofs"][0], dev)
+        first = toy_pos_entries(doc, dev, 0, 1)
     torch.cuda.synchronize()
-    log(f"prover inputs: toy step setup {t1 - t0:.1f} s, wrap setup {t2 - t1:.1f} s; toy tip 0 recorded, equal "
-        f"to the fixture's, in {time.time() - t2:.1f} s")
-    return {"doc": doc, "rec": rec, "first": first, "dev": dev, "seed": seed,
-            "toy_setup_s": {"step": t1 - t0, "wrap": t2 - t1}}
+    log(f"prover inputs: toy tip 0 recorded, equal to the fixture's, in {time.time() - t0:.1f} s")
+    return {"doc": doc, "rec": rec, "first": first, "dev": dev, "seed": seed, "toy_setup_s": toy_setup_s}
 
 
 def kimchi_prover(ctx: dict, rows: list[dict]) -> dict:
@@ -2023,38 +2127,30 @@ def kimchi_prover(ctx: dict, rows: list[dict]) -> dict:
 def toy_tips_prover(ctx: dict) -> dict:
     """Phase 11 (b): the 8 toy Proof-of-States proved again (tip 0 in
     prover_inputs), each equal to the fixture's bytes; both index docs
-    equal to the fixture's; the service accepts all 8."""
+    equal to the fixture's; a default-constructed service accepts all 8."""
     import torch
 
     from mina_bridge_tpu_torch.bridge import aligned
     from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
-    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
     from mina_bridge_tpu_torch.pickles import verifier as pv
 
     dev, doc = ctx["dev"], ctx["doc"]
-    done = [ctx["first"]]
-    stages = []
+    timings: list = []
     with CountPerCall(pv, "prove_tip") as per:
-        for entry in doc["proofs"][1:]:
-            st: dict = {}
-            done.append(regen_state_proof(entry, dev, st))
-            stages.append({k: v for k, v in st.items() if k.endswith("_s")})
-    _, w_index, w_dindex, _, _ = pv.block_setup(doc["block_log_n"], doc["step_log_n"], str(dev))
-    _, s_index, s_dindex, _, _ = pv.step_setup(doc["step_log_n"], str(dev))
-    if bf._index_doc(w_index) != doc["wrap_index"] or bf._index_doc(s_index) != doc["step_index"]:
-        raise RuntimeError("the toy wrap or step index differs from the fixture's")
+        done = ctx["first"] + toy_pos_entries(doc, dev, 1, timings=timings)
     pubs, proofs, tips = (list(x) for x in zip(*done))
     rng = np.random.default_rng(ctx["seed"] + 12)
     rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)]
                                    for _ in tips]), device=dev)
-    res = aligned.CudaVerifierService(w_dindex, s_dindex).submit_states(pubs, proofs, tips, rw)
+    res = aligned.CudaVerifierService(device=str(dev)).submit_states(pubs, proofs, tips, rw)
     if not all(r.ok for r in res):
         raise RuntimeError(f"the service rejected the port's toy state proofs: {[r.reason for r in res]}")
-    out = {"tips": len(tips), "tip_s": per.seconds, "stages_s": stages,
+    out = {"tips": len(tips), "tip_s": per.seconds, "stages_s": [{k: v for k, v in t.items() if k.endswith("_s")}
+                                                                  for t in timings],
            "launches_per_tip": [{k: v for k, v in c.items() if v} for c in per.counts],
            "equal_to_fixture": True, "service_accepts": True, "setup_s": ctx["toy_setup_s"]}
     log(f"phase 11 (b): 8 toy tips equal to fixtures/pos_2e10_s2e4_b8.json.gz (7 timed: "
-        f"{[round(t, 2) for t in per.seconds]} s); indexes equal; the service accepts all 8")
+        f"{[round(t, 2) for t in per.seconds]} s); indexes equal; a default service accepts all 8")
     return out
 
 
@@ -2119,6 +2215,178 @@ def prover_phase(ctx: dict, rows: list[dict]) -> dict:
     out = {"kimchi": kimchi_prover(ctx, rows), "toy_tips": toy_tips_prover(ctx), "real_tip": real_tip_prover(ctx, rows)}
     out["phase_s"] = time.time() - t_phase
     log(f"phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
+def sudoku_phase(dev, seed: int, rows: list[dict]) -> dict:
+    """Phase 12 (see the module docstring): the port's Sudoku circuit set
+    up and proven on the card, equal to fixtures/sudoku_2e11.json.gz; the
+    verify accepts it at B = 1 and rejects its puzzle hash + 1."""
+    import random
+
+    import torch
+
+    from mina_bridge_tpu_torch.commitment import ipa
+    from mina_bridge_tpu_torch.curves.srs import load_srs
+    from mina_bridge_tpu_torch.example import sudoku_lib
+    from mina_bridge_tpu_torch.example.sudoku_zkapp import LOG_N, SudokuCircuit, puzzle_hash
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs, limbs_to_int
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.kimchi import prover_host
+    from mina_bridge_tpu_torch.kimchi import verifier as kv
+
+    t_phase = time.time()
+    want = bf.read_doc(SUDOKU_FIXTURE)
+    rng = random.Random(want["seed"])
+    puzzle, solution = sudoku_lib.generate(rng, holes=want["holes"])
+    if (puzzle, solution, LOG_N) != (want["puzzle"], want["solution"], want["log_n"]):
+        raise RuntimeError("the port's Sudoku generator differs from the fixture's puzzle")
+    circ = SudokuCircuit(puzzle)
+    srs = load_srs("pallas", circ.circuit.n)
+    h = (limbs_to_int(srs["h"][0]), limbs_to_int(srs["h"][1]))
+    with (CountPerCall(prover_host, "setup") as per_setup, CountPerCall(prover_host, "prove") as per,
+          RecordFirst(prover_host, "prove", {"pow_const"}) as k1,
+          RecordFirst(ipa.HostIpaProver, "open", PROVER_SITES - {"pow_const"}) as opening):
+        index, proof = circ.prove(solution, srs["g"], h, rng, device=str(dev))
+    if bf._index_doc(index) != want["index"] or bf._proof_doc(proof) != want["proof"]:
+        raise RuntimeError("the port's Sudoku index or proof differs from fixtures/sudoku_2e11.json.gz")
+    if proof.public != [puzzle_hash(puzzle) % index.curve.scalar.p, 1]:
+        raise RuntimeError("the Sudoku proof's public inputs are not (puzzle hash, solved)")
+    dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
+    w = np.random.default_rng(seed + 14)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(w.bytes(16), "little"), NLIMBS) for _ in range(2)]]),
+                         device=dev)
+
+    def verify(pr) -> bool:
+        hint = kv.host_public_commitments(dindex, [pr.public])
+        return kv.verify(dindex, kv.DeviceProofs.from_host([pr], dev), rw, pub_comm_hint=hint)
+
+    bad = dataclasses.replace(proof, public=[(proof.public[0] + 1) % index.curve.scalar.p, proof.public[1]])
+    verdicts = {"honest": verify(proof), "puzzle hash + 1": verify(bad)}
+    if verdicts != {"honest": True, "puzzle hash + 1": False}:
+        raise RuntimeError(f"the Sudoku verify gave {verdicts}")
+    for row in rows:
+        row["launches_per_sudoku_proof"] = per.counts[0][row["name"]]
+        row["launches_per_sudoku_setup"] = per_setup.counts[0][row["name"]]
+    checked = (check_prover_inputs(k1.rec, rows, "the Sudoku proof")
+               + check_prover_inputs(opening.rec, rows, "the Sudoku proof's opening"))
+    out = {"log_n": LOG_N, "rows": len(circ.builder.rows), "setup_s": per_setup.seconds[0], "prove_s": per.seconds[0],
+           "launches_setup": {k: v for k, v in per_setup.counts[0].items() if v},
+           "launches_prove": {k: v for k, v in per.counts[0].items() if v}, "equal_to_fixture": True,
+           "verdicts": verdicts, "kernel_inputs_checked": checked, "phase_s": time.time() - t_phase}
+    log(f"phase 12: Sudoku 2^{LOG_N} ({out['rows']} rows): setup {out['setup_s']:.2f} s, proof {out['prove_s']:.2f} s, "
+        f"equal to the fixture; verify {verdicts}; launches {out['launches_prove']}; {out['phase_s']:.1f} s")
+    return out
+
+
+def real_pos_phase(tips_ctx: dict, seed: int, rows: list[dict]) -> dict:
+    """Phase 13 (see the module docstring): real-scale Proof-of-State on the
+    banked fixture, verified against phase 7's indexes once its index docs
+    are shown equal to the tips fixture's."""
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.bridge import aligned
+    from mina_bridge_tpu_torch.bridge import fixtures as bfx
+    from mina_bridge_tpu_torch.fields.params import NLIMBS, int_to_limbs
+    from mina_bridge_tpu_torch.kimchi import bench_fixtures as bf
+    from mina_bridge_tpu_torch.pickles import fixtures as pfx
+    from mina_bridge_tpu_torch.pickles import verifier as pv
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    wl, sl, B = REAL_POS
+    path = bfx.pos_fixture_path(wl, sl, B)
+    doc, tips_doc = bf.read_doc(path), bf.read_doc(pfx.fixture_path(*TIPS))
+    if (doc["wrap_index"], doc["step_index"]) != (tips_doc["wrap_index"], tips_doc["step_index"]):
+        raise RuntimeError(f"{path.name}'s index docs differ from {pfx.fixture_path(*TIPS).name}'s")
+    fx = bfx.load_pos_fixture(path)
+    tips = [p.tip_proof() for p in fx["proofs"]]
+    if (fx["block_log_n"], fx["step_log_n"], len(tips)) != REAL_POS or any(
+            t.wrap.public[0] != pub.candidate_chain_state_hashes[-1] for t, pub in zip(tips, fx["pubs"])):
+        raise RuntimeError(f"{path.name}: not 8 tips at 2^{wl} / 2^{sl}, each binding its chain's tip hash")
+    dindex, step_dindex = tips_ctx["dindex"], tips_ctx["step_dindex"]
+    rng = np.random.default_rng(seed + 15)
+    rw = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(rng.bytes(16), "little"), NLIMBS) for _ in range(5)]
+                                   for _ in range(B)]), device=dindex.device)
+
+    def new_service():
+        return aligned.CudaVerifierService(wl, step_log_n=sl, dindex=dindex, step_dindex=step_dindex)
+
+    tips_calls = []
+    orig = pv.batch_verify_tips
+
+    def counted(*a, **kw):
+        tips_calls.append(a[1].shape[0])
+        return orig(*a, **kw)
+
+    pv.batch_verify_tips = counted
+    try:
+        res, counts, times, stages = timed_calls(
+            new_service, lambda s: s.submit_states(fx["pubs"], fx["proofs"], tips, rw), new_service())
+        if not all(r.ok for r in res):
+            raise RuntimeError(f"the service rejected the real-scale state proofs: {[r.reason for r in res]}")
+        missing = [k for k in STATE_PATH if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched in the real-scale states call: {missing}")
+        honest_calls = len(tips_calls)
+        pubs2, tips2 = pos_tampers(fx["pubs"], tips)
+        t0 = time.time()
+        res2 = new_service().submit_states(pubs2, fx["proofs"], tips2, rw)
+        torch.cuda.synchronize()
+        second_s = time.time() - t0
+        bad_calls = tips_calls[honest_calls:]
+    finally:
+        pv.batch_verify_tips = orig
+    got = {i: r.reason for i, r in enumerate(res2) if not r.ok}
+    if got != POS_TAMPERS:
+        raise RuntimeError(f"real-scale second batch: rejected {got}, expected {POS_TAMPERS}")
+
+    # the tips verify alone, its host hints (big-int public-commitment
+    # scalar multiplications) timed: these tips bind real 255-bit state
+    # hashes, phase 7's the made-up 0x5A5A + 7 i
+    alone = {}
+    dev = dindex.device
+    for name, dtips, w in (("real_chains", pv.DeviceTips.from_host(tips, dev), rw),
+                           ("phase_7_tips", tips_ctx["dtips"], tips_ctx["rw"])):
+        with StageClock([(pv, "_host_hint", "host hints")]) as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = pv.batch_verify_tips(dtips, w, dindex, step_dindex)
+            torch.cuda.synchronize()
+        if ok is not True:
+            raise RuntimeError(f"the tips verify rejected the {name}")
+        alone[name] = {"tips_verify_ms": (time.perf_counter() - t0) * 1e3, "host_hints_ms": clock.s["host hints"] * 1e3}
+
+    # one state update through the SDK at real scale, on fresh mock nodes
+    eth_node, mina_node = bridge_nodes(fx, 0)
+    sdk = bridge_sdk(eth_node, mina_node, dev, (dindex, step_dindex))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = sdk.update_bridge_chain(fx["proofs"][0].bridge_tip_state)
+    torch.cuda.synchronize()
+    sdk_ms = (time.perf_counter() - t0) * 1e3
+    sdk_counts = dict(kernels.launches)
+    if ok is not True or eth_node.state.state_hashes != fx["pubs"][0].candidate_chain_state_hashes:
+        raise RuntimeError("the real-scale update_bridge_chain did not store the chain")
+    for row in rows:
+        row["launches_per_real_states_call"] = counts[row["name"]]
+    ms = sorted(times)[1] * 1e3
+    out = {"fixture": str(path.relative_to(ROOT)), "B": B, "wrap_log_n": wl, "step_log_n": sl,
+           "index_docs_equal_to": str(pfx.fixture_path(*TIPS).relative_to(ROOT)), "held_before_gb": held_gb,
+           "ms_per_batch": ms, "proofs_per_s": B / ms * 1e3, "runs_s": times,
+           "stages_s": stages[sorted(range(3), key=lambda i: times[i])[1]], "launches": counts,
+           "tips_calls_honest": honest_calls, "second_batch": {"rejected": {str(k): v for k, v in got.items()},
+                                                              "tips_calls": len(bad_calls), "tips_batches": bad_calls,
+                                                              "s": second_s},
+           "tips_verify_alone": alone, "sdk_update_bridge_chain_ms": sdk_ms, "sdk_launches": {k: v for k, v in sdk_counts.items() if v},
+           "phase_s": time.time() - t_phase}
+    log(f"phase 13: real-scale states B={B} (wrap 2^{wl}, step 2^{sl}): {ms:.1f} ms per batch; stages "
+        f"{out['stages_s']}; tips verify alone {alone}; second batch rejected {got} in {len(bad_calls)} tips calls "
+        f"({second_s:.1f} s); "
+        f"SDK update_bridge_chain {sdk_ms:.1f} ms; {out['phase_s']:.1f} s")
     return out
 
 
@@ -2208,7 +2476,7 @@ def main() -> int:
     tips_ctx = tips_inputs(args.seed, dev)
     service_ctx = service_inputs(args.seed, dev)
     bridge_ctx = bridge_inputs(args.seed, dev)
-    prover_ctx = prover_inputs(args.seed, dev)
+    prover_ctx = prover_inputs(args.seed, dev, bridge_ctx["toy_setup_s"])
 
     # ---- 5. kernels vs plain versions ----
     msm_scan = next(iter(msm_rec.inputs["padd_mixed_select2"].values()))
@@ -2266,6 +2534,12 @@ def main() -> int:
     # ---- 11. the prover: Kimchi 2^16, the toy tips, one real-scale tip ----
     report["prover"] = prover = prover_phase(prover_ctx, rows)
 
+    # ---- 12. the Sudoku consumer ----
+    report["sudoku"] = sudoku = sudoku_phase(dev, args.seed, rows)
+
+    # ---- 13. real-scale Proof-of-State ----
+    report["real_pos"] = real_pos = real_pos_phase(tips_ctx, args.seed, rows)
+
     report["kernels"] = rows
     report["total_s"] = time.time() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2274,6 +2548,8 @@ def main() -> int:
     print(json.dumps({"bridge": bridge}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"prover": prover}))
+    print(json.dumps({"sudoku": sudoku}))
+    print(json.dumps({"real_pos": real_pos}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,15 +104,31 @@ def save_proof_files(
 class CudaVerifierService:
     """The batcher and operator: verify, then batch-commit.
 
-    dindex, step_dindex: the tips' wrap (Pallas) and step (Vesta) verifier
-    indexes (pickles/fixtures.py loads them; the port builds no index).
+    block_log_n, step_log_n: the tips' wrap and step domains (None: the
+    toy defaults pickles.BLOCK_LOG_N and STEP_LOG_N, as the JAX
+    package's TpuVerifierService). dindex, step_dindex: optional
+    preloaded wrap (Pallas) and step (Vesta) verifier indexes, e.g. from a
+    committed fixture (pickles/fixtures.py), which skip the setup at real
+    scale; a missing one is built by pickles.block_setup / step_setup on
+    the service's device at first use, once per process.
     require_step_proofs: reject tips without their wrapped step proof, so
     that a submission is verified whole on the card; legacy
     accumulator-only tips are acceptable only from trusted fixtures.
     on_batch_root: called with each batch's root (posting it on chain).
     device: where the service runs (None: the card; "cpu" for the tests)."""
 
-    def __init__(self, dindex, step_dindex, on_batch_root=None, require_step_proofs: bool = True, device: str | None = None):
+    def __init__(
+        self,
+        block_log_n: int | None = None,
+        on_batch_root=None,
+        step_log_n: int | None = None,
+        dindex=None,
+        step_dindex=None,
+        require_step_proofs: bool = True,
+        device: str | None = None,
+    ):
+        self.block_log_n = pickles.BLOCK_LOG_N if block_log_n is None else block_log_n
+        self.step_log_n = step_log_n  # None: pickles.STEP_LOG_N
         self.dindex = dindex
         self.step_dindex = step_dindex
         self.require_step_proofs = require_step_proofs
@@ -139,7 +155,8 @@ class CudaVerifierService:
         dtips = pickles.DeviceTips.from_host(tip_proofs_host, _device(self.device))
         if rand_weights is None:
             rand_weights = vs.system_rand_weights(len(pubs), self.device)
-        results = vs.verify_states_batch(pubs, proofs, dtips, rand_weights, self.dindex, self.step_dindex, self.device)
+        results = vs.verify_states_batch(pubs, proofs, dtips, rand_weights, self.dindex, self.step_dindex, self.device,
+                                         block_log_n=self.block_log_n, step_log_n=self.step_log_n)
         for pub, proof, res in zip(pubs, proofs, results):
             if res.ok:
                 self.pending.append((proof.encode(), encode_state_pub_inputs_evm(pub), PROVING_SYSTEM_MINA))

@@ -5,17 +5,23 @@ The port's own copy of mina_bridge_tpu/bridge/fixtures.py (`make_state`,
 `make_chain`, `dummy_tip_doc`, `make_state_proof`, `make_account`,
 `SparseLedger`): the same seeded rng calls give the same chains and
 accounts, hashed on the host. `make_account_batch` makes a
-Proof-of-Account batch's accounts and paths. `load_pos_fixture` reads
-fixtures/pos_2e10_s2e4_b8.json.gz, which scripts/make_pos_fixture.py
-writes: state proofs whose candidate tips are toy Pickles tips (wrap 2^10,
-step 2^4) proven for each chain's own tip hash, and both verifier indexes.
+Proof-of-Account batch's accounts and paths.
+
+The Proof-of-State fixtures, fixtures/pos_2e<wrap>_s2e<step>_b<B>.json.gz,
+hold B state proofs whose candidate tips are Pickles tips proven for each
+chain's own tip hash, and both verifier indexes. `make_pos_fixture` writes
+one as scripts/make_pos_fixture.py wrote the toy file (wrap 2^10, step
+2^4), at any domains and in ranges that `merge_pos_fixtures` joins;
+`load_pos_fixture` reads one.
 """
 
 from __future__ import annotations
 
-import gzip
-import json
+import dataclasses
+import logging
 import pathlib
+import random
+import time
 
 from ..fields.params import FP
 from ..kimchi import bench_fixtures as bf
@@ -152,7 +158,8 @@ def dummy_tip_doc() -> dict:
 
 def make_state_proof(rng, tip_doc: dict | None = None):
     states, tip_state = make_chain(rng)
-    cand_hashes = [pm.host_full_state_hash(s) for s in states]
+    # make_chain hashed each state into the next one's previous_state_hash
+    cand_hashes = [s["previous_state_hash"] for s in states[1:]] + [pm.host_full_state_hash(states[-1])]
     ledgers = [
         s["body"]["blockchain_state"]["snarked_ledger_hash"] for s in states
     ]
@@ -291,17 +298,87 @@ def make_account_batch(seed: int, n: int, depth: int = LEDGER_DEPTH) -> tuple[li
     for each a Merkle path of `depth` seeded random siblings on random
     sides, in proof_model format [('Left'|'Right', [hash])]. The ledger
     hashes they fold to are the caller's to compute."""
-    import random
-
     rng = random.Random(seed)
     accounts = [make_account(rng, with_zkapp=i % 2 == 0) for i in range(n)]
     paths = [[(rng.choice(("Left", "Right")), [rng.randrange(FP.p)]) for _ in range(depth)] for _ in range(n)]
     return accounts, paths
 
 
-# --- the toy Proof-of-State fixture -------------------------------------
+# --- the Proof-of-State fixtures -----------------------------------------
 
-POS_FIXTURE = bf.FIXTURES / "pos_2e10_s2e4_b8.json.gz"
+POS_SEED = 0x5057  # scripts/make_pos_fixture.py's seed
+
+
+def pos_fixture_path(block_log_n: int, step_log_n: int, batch: int) -> pathlib.Path:
+    return bf.FIXTURES / f"pos_2e{block_log_n}_s2e{step_log_n}_b{batch}.json.gz"
+
+
+POS_FIXTURE = pos_fixture_path(10, 4, 8)  # the toy tips' (pickles.BLOCK_LOG_N, STEP_LOG_N)
+
+
+def make_pos_fixture(
+    seed: int = POS_SEED,
+    batch: int = 8,
+    block_log_n: int = 10,
+    step_log_n: int = 4,
+    device: str | None = None,
+    tip_prover=None,
+    start: int = 0,
+    count: int | None = None,
+    out: pathlib.Path | None = None,
+    timings: list | None = None,
+) -> dict:
+    """State proofs start .. start + count - 1 (count: the rest of
+    `batch`) of a Proof-of-State fixture, as a document in the layout of
+    the committed toy file. Proof i: random.Random(seed + i) makes the
+    chain (make_state_proof), then the tip binding the chain's tip hash is
+    proven with the same rng, by pickles.prove_tip at the given domains on
+    `device` (the card unless "cpu"), or by tip_prover(state_hash, rng)
+    when given, and put on the wire as the proof's candidate tip.
+
+    The file holds the docs of the verifier indexes that
+    pickles.block_setup / step_setup build on `device`. out: where the document is written after every proof (a temporary
+    name, then a rename). timings, when given, receives prove_tip's
+    timings a tip."""
+    from ..pickles import verifier as pv
+    from . import pickles_wire
+
+    count = batch - start if count is None else count
+    wrap_index, step_index = pv.block_setup(block_log_n, step_log_n, device)[1], pv.step_setup(step_log_n, device)[1]
+    doc = {"block_log_n": block_log_n, "step_log_n": step_log_n, "seed": seed, "proofs": [],
+           "wrap_index": bf._index_doc(wrap_index), "step_index": bf._index_doc(step_index)}
+    for i in range(start, start + count):
+        t0 = time.perf_counter()
+        rng = random.Random(seed + i)
+        pub, proof, _, _ = make_state_proof(rng)
+        if tip_prover is None:
+            st = {} if timings is not None else None
+            tip = pv.prove_tip(pub.candidate_chain_state_hashes[-1], rng, log_n=block_log_n, step_log_n=step_log_n,
+                               device=device, timings=st)
+            if timings is not None:
+                timings.append(st)
+        else:
+            tip = tip_prover(pub.candidate_chain_state_hashes[-1], rng)
+        proof = dataclasses.replace(proof, candidate_tip_proof=pickles_wire.tip_doc(tip))
+        doc["proofs"].append({"seed": seed + i, "pub": pub.encode().hex(), "proof": proof.encode().hex()})
+        if out is not None:
+            bf.write_doc(out, doc)
+        logging.getLogger(__name__).info("state proof %d: tip proven in %.1f s", i, time.perf_counter() - t0)
+    return doc
+
+
+def merge_pos_fixtures(out: pathlib.Path, parts: list[pathlib.Path]) -> int:
+    """The proofs of `parts`, in order, as one fixture at `out`; the parts
+    must agree on the domains, the seed and both index docs. Returns the
+    number of proofs."""
+    docs = [bf.read_doc(p) for p in parts]
+    keys = ("block_log_n", "step_log_n", "seed", "wrap_index", "step_index")
+    for path, d in zip(parts, docs):
+        if any(d[k] != docs[0][k] for k in keys):
+            raise ValueError(f"{path} differs from {parts[0]} in {[k for k in keys if d[k] != docs[0][k]]}")
+    merged = dict(docs[0], proofs=[e for d in docs for e in d["proofs"]])
+    bf.write_doc(out, merged)
+    return len(merged["proofs"])
 
 
 def load_pos_fixture(path: pathlib.Path = POS_FIXTURE) -> dict:
@@ -312,8 +389,7 @@ def load_pos_fixture(path: pathlib.Path = POS_FIXTURE) -> dict:
     device)."""
     from ..curves.host import PALLAS, VESTA
 
-    with gzip.open(path, "rt") as f:
-        doc = json.load(f)
+    doc = bf.read_doc(path)
     return {
         "block_log_n": doc["block_log_n"],
         "step_log_n": doc["step_log_n"],

@@ -83,10 +83,19 @@ def _pad_batch(tips: pickles.DeviceTips, rw: torch.Tensor, min_batch: int = 2):
     return tips.map(tile), tile(rw)
 
 
-def _tip_verdicts(idxs: list[int], tips: pickles.DeviceTips, rand_weights: torch.Tensor, dindex, step_dindex) -> dict[int, bool]:
+def _tip_verdicts(
+    idxs: list[int],
+    tips: pickles.DeviceTips,
+    rand_weights: torch.Tensor,
+    dindex=None,
+    step_dindex=None,
+    block_log_n: int = pickles.BLOCK_LOG_N,
+    step_log_n: int | None = None,
+) -> dict[int, bool]:
     """{index: verdict} for the tips at `idxs`: one batched verify of all
     of them, then, only on failure, the same on each half (padded by
-    `_pad_batch`) down to single tips."""
+    `_pad_batch`) down to single tips. The indexes and domains go to
+    `pickles.batch_verify_tips`, which builds a missing index."""
     verdicts: dict[int, bool] = {}
 
     def rec(sub: list[int]):
@@ -94,7 +103,7 @@ def _tip_verdicts(idxs: list[int], tips: pickles.DeviceTips, rand_weights: torch
             return
         sel = torch.as_tensor(sub, device=rand_weights.device)
         tp, rw = _pad_batch(tips.map(lambda x: x[sel]), rand_weights[sel])
-        if pickles.batch_verify_tips(tp, rw, dindex, step_dindex):
+        if pickles.batch_verify_tips(tp, rw, dindex, step_dindex, log_n=block_log_n, step_log_n=step_log_n):
             verdicts.update((i, True) for i in sub)
         elif len(sub) == 1:
             verdicts[sub[0]] = False
@@ -216,13 +225,16 @@ def verify_proof_of_state(
     proof: pm.MinaStateProof,
     tip_proof_device: pickles.DeviceTips,
     rand_weights: torch.Tensor,
-    dindex,
-    step_dindex,
+    dindex=None,
+    step_dindex=None,
     device: str | None = None,
+    block_log_n: int = pickles.BLOCK_LOG_N,
+    step_log_n: int | None = None,
 ) -> StateVerificationResult:
     """Single-proof Proof-of-State: a batch of one on the batched path
     (verify_states_batch), so its checks exist exactly once."""
-    [result] = verify_states_batch([pub], [proof], tip_proof_device, rand_weights, dindex, step_dindex, device)
+    [result] = verify_states_batch([pub], [proof], tip_proof_device, rand_weights, dindex, step_dindex, device,
+                                   block_log_n=block_log_n, step_log_n=step_log_n)
     return result
 
 
@@ -231,22 +243,26 @@ def verify_states_batch(
     proofs: list[pm.MinaStateProof],
     tip_proofs_device: pickles.DeviceTips,
     rand_weights: torch.Tensor,
-    dindex,
-    step_dindex,
+    dindex=None,
+    step_dindex=None,
     device: str | None = None,
+    block_log_n: int = pickles.BLOCK_LOG_N,
+    step_log_n: int | None = None,
 ) -> list[StateVerificationResult]:
     """Verify many Proof-of-States at once: every state's body hash, then
     every state hash, as one device batch each, and the B tips in one
     batched tips verify (see the module docstring). dindex, step_dindex:
-    the tips' wrap (Pallas) and step (Vesta) verifier indexes."""
+    the tips' wrap (Pallas) and step (Vesta) verifier indexes; a missing
+    one is built at block_log_n / step_log_n (pickles.batch_verify_tips)."""
     with METRICS.timer("verify_states_batch"):
-        results = _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, step_dindex, device)
+        results = _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, step_dindex, device,
+                                       block_log_n, step_log_n)
     METRICS.count("state_proofs_submitted", len(pubs))
     METRICS.count("state_proofs_verified", sum(r.ok for r in results))
     return results
 
 
-def _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, step_dindex, device):
+def _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, step_dindex, device, block_log_n, step_log_n):
     dev = _device(device)
     B = len(pubs)
     n = pm.BRIDGE_TRANSITION_FRONTIER_LEN
@@ -320,7 +336,7 @@ def _verify_states_batch(pubs, proofs, tip_proofs_device, rand_weights, dindex, 
     # mask nor fail another proof's tip verdict.
     ok_idxs = [b for b, r in enumerate(results) if r.ok]
     with METRICS.timer("states.tips"):
-        verdicts = _tip_verdicts(ok_idxs, tip_proofs_device, rand_weights, dindex, step_dindex)
+        verdicts = _tip_verdicts(ok_idxs, tip_proofs_device, rand_weights, dindex, step_dindex, block_log_n, step_log_n)
     for b in ok_idxs:
         if not verdicts[b]:
             results[b] = StateVerificationResult(False, "tip proof invalid")

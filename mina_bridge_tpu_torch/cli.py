@@ -10,19 +10,15 @@ STATE_SETTLEMENT_ETH_ADDR and ACCOUNT_VALIDATION_ETH_ADDR (utils/env.py).
 
 The port's counterpart of mina_bridge_tpu/cli.py, on the card: `main` and
 `_build_sdk` take `device` (None: the card; the CPU only when a caller
-passes "cpu"), and without a card they raise. It differs from the JAX CLI
-in three ways, each giving the same result:
-- the service's two verifier indexes (the toy wrap 2^10 and step 2^4 ones
-  the JAX CLI's default service builds with its circuit builder) are
-  loaded from the Proof-of-State fixture, which the JAX prover wrote at
-  those defaults (`verifier_indexes`): the port has no circuit builder;
-- submit-state passes no tip proof, so `update_bridge_chain` decodes the
-  tip the node serves: the port has no host prover to stand in for one
-  (the JAX CLI proves a toy tip on its host);
-- the service posts each batch root to the registry the settlement
-  contracts check inclusion against (`postBatchRoot`, read from their
-  `registry()` getters). The JAX CLI's service posts none, so a contract
-  would reject its batch.
+passes "cpu"), and without a card they raise. As the JAX CLI does, its
+service builds the toy wrap (2^10) and step (2^4) verifier indexes with
+the circuit builder at first use (pickles.block_setup / step_setup), and
+submit-state proves a toy tip for the candidate chain's tip hash
+(pickles.prove_tip, on the card) and passes it to `update_bridge_chain`.
+It differs from the JAX CLI in one way: the service posts each batch root
+to the registry the settlement contracts check inclusion against
+(`postBatchRoot`, read from their `registry()` getters). The JAX CLI's
+service posts none, so a contract would reject its batch.
 Like the JAX CLI, `--devnet` and `--save-proof` (and SAVE_PROOF) are
 parsed and not acted on: the wallet follows NETWORK (devnet by default:
 the Anvil key), and no proof file is written.
@@ -38,19 +34,14 @@ import time
 log = logging.getLogger("mina_bridge_tpu_torch")
 
 
-def verifier_indexes(device: str | None = None) -> tuple:
-    """The toy Pickles tips' wrap (Pallas, 2^10) and step (Vesta, 2^4)
-    verifier indexes on `device`, from fixtures/pos_2e10_s2e4_b8.json.gz."""
-    from .bridge import fixtures
-    from .pickles.fixtures import device_index
-
-    fx = fixtures.load_pos_fixture()
-    return device_index(fx["wrap_index"], device), device_index(fx["step_index"], device)
-
-
-def make_sdk(eth, mina, state_addr: bytes, account_addr: bytes, indexes: tuple, device: str | None = None):
+def make_sdk(eth, mina, state_addr: bytes, account_addr: bytes, indexes: tuple | None = None,
+             device: str | None = None):
     """A BridgeSdk over the clients, whose service posts each batch root to
-    the registry (or registries) of the two settlement contracts."""
+    the registry (or registries) of the two settlement contracts.
+
+    indexes: the tips' (wrap, step) device verifier indexes, when a caller
+    has them (a fixture's); None: the service builds the toy ones at first
+    use, as the CLI's does."""
     from .bridge import aligned as al
     from .bridge import eth as ethmod
     from .sdk import BridgeSdk
@@ -63,7 +54,8 @@ def make_sdk(eth, mina, state_addr: bytes, account_addr: bytes, indexes: tuple, 
         for r in registries:
             r.post_batch_root(root)
 
-    service = al.CudaVerifierService(*indexes, on_batch_root=post_root, device=device)
+    dindex, step_dindex = indexes or (None, None)
+    service = al.CudaVerifierService(on_batch_root=post_root, dindex=dindex, step_dindex=step_dindex, device=device)
     return BridgeSdk(
         mina,
         eth,
@@ -94,8 +86,7 @@ def _build_sdk(env, device: str | None = None):
         mina,
         bytes.fromhex(env.state_settlement_addr.removeprefix("0x")),
         bytes.fromhex(env.account_validation_addr.removeprefix("0x")),
-        verifier_indexes(device),
-        device,
+        device=device,
     )
 
 
@@ -124,9 +115,18 @@ def main(argv=None, device: str | None = None) -> int:
 
     try:
         if args.command == "submit-state":
+            from .bridge import mina_types as mt
+            from .bridge import proof_model as pm
+            from .pickles import verifier as pickles
+
             tip_hash = sdk.get_bridged_chain_tip_state_hash()
             tip_state = sdk.mina.query_state(hex(tip_hash))
-            updated = sdk.update_bridge_chain(tip_state)
+            # the tip proof for the candidate tip comes from the proving
+            # side; here the pickles layer proves a toy one on the card
+            states, _ = sdk.mina.query_candidate_chain()
+            cand_tip_hash = pm.host_full_state_hash(mt.decode_protocol_state_any(states[-1]))
+            tip_proof = pickles.prove_tip(cand_tip_hash, device=device)
+            updated = sdk.update_bridge_chain(tip_state, tip_proof)
             log.info("chain %s", "updated" if updated else "already verified")
         elif args.command == "submit-account":
             data = sdk.validate_account(args.public_key, args.state_hash)

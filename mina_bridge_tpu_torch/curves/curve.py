@@ -18,6 +18,10 @@ from ..fields.params import NLIMBS
 from .host import B_COEFF, PALLAS, VESTA, CurveSpec
 
 B3 = 3 * B_COEFF  # 15
+# Lanes up to which add and double stack their independent field ops: the
+# torch ops' fixed cost rules below it, the stacked tensors' size above it
+# (scripts/torch_cpu_msm.py --lanes times both forms).
+STACK_MAX = 32
 
 __all__ = [
     "PALLAS",
@@ -93,7 +97,10 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def add(c: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Complete addition (RCB16 Algorithm 7, a = 0, b3 = 15)."""
+    """Complete addition (RCB16 Algorithm 7, a = 0, b3 = 15); up to
+    STACK_MAX lanes as `_add_stacked`, the same limbs."""
+    if max(p[..., 0, 0].numel(), q[..., 0, 0].numel()) <= STACK_MAX:
+        return _add_stacked(c, p, q)
     f = c.base
     m = lambda u, v: ffl.mul(f, u, v)
     a_ = lambda u, v: ffl.add(f, u, v)
@@ -137,6 +144,33 @@ def add(c: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.stack([x3, y3, z3], dim=-2)
 
 
+def _add_stacked(c: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """`add` with the algorithm's products and sums in its own order, those
+    that do not depend on each other stacked into one field op (6 products,
+    then 6): the same limbs as one op at a time in a third of the torch
+    ops, which pays where the ops are few lanes wide."""
+    f = c.base
+    p, q = torch.broadcast_tensors(p, q)
+    x1, y1, z1 = p.unbind(-2)
+    x2, y2, z2 = q.unbind(-2)
+
+    # t3 = x1 + y1, t4 = x2 + y2, ..; t0 = x1 x2, t1 = y1 y2, t2 = z1 z2,
+    # t3 = t3 t4, t4 = (y1 + z1)(y2 + z2), x3 = (x1 + z1)(x2 + z2)
+    s0, s1, s2, s3, s4, s5 = ffl.add(f, torch.stack([x1, x2, y1, y2, x1, x2]), torch.stack([y1, y2, z1, z2, z1, z2]))
+    t0, t1, t2, t3, t4, x3 = ffl.mul(f, torch.stack([x1, y1, z1, s0, s2, s4]), torch.stack([x2, y2, z2, s1, s3, s5]))
+    t01, t12, t02, t00 = ffl.add(f, torch.stack([t0, t1, t0, t0]), torch.stack([t1, t2, t2, t0]))
+    t3, t4, y3 = ffl.sub(f, torch.stack([t3, t4, x3]), torch.stack([t01, t12, t02]))
+    t0 = ffl.add(f, t00, t0)
+    t2, y3 = ffl.mul_small(f, torch.stack([t2, y3]), B3)
+    z3 = ffl.add(f, t1, t2)
+    t1 = ffl.sub(f, t1, t2)
+    # x3 = t4 y3, t2 = t3 t1, y3 = y3 t0, t1 = t1 z3, t0 = t0 t3, z3 = z3 t4
+    x3, t2, y3, t1, t0, z3 = ffl.mul(f, torch.stack([t4, t3, y3, t1, t0, z3]), torch.stack([y3, t1, t0, z3, t3, t4]))
+    x3 = ffl.sub(f, t2, x3)
+    y3, z3 = ffl.add(f, torch.stack([t1, z3]), torch.stack([y3, t0]))
+    return torch.stack([x3, y3, z3], dim=-2)
+
+
 def add_mixed(c: CurveSpec, p: torch.Tensor, x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
     """Mixed addition (RCB16 Algorithm 8, a = 0): q = (x2, y2) with Z = 1.
     Invalid if q is the identity; callers select around that case."""
@@ -176,7 +210,10 @@ def add_mixed(c: CurveSpec, p: torch.Tensor, x2: torch.Tensor, y2: torch.Tensor)
 
 
 def double(c: CurveSpec, p: torch.Tensor) -> torch.Tensor:
-    """Exception-free doubling (RCB16 Algorithm 9, a = 0, b3 = 15)."""
+    """Exception-free doubling (RCB16 Algorithm 9, a = 0, b3 = 15); up to
+    STACK_MAX lanes as `_double_stacked`, the same limbs."""
+    if p[..., 0, 0].numel() <= STACK_MAX:
+        return _double_stacked(c, p)
     f = c.base
     m = lambda u, v: ffl.mul(f, u, v)
     a_ = lambda u, v: ffl.add(f, u, v)
@@ -201,6 +238,25 @@ def double(c: CurveSpec, p: torch.Tensor) -> torch.Tensor:
     t1 = m(x, y)
     x3 = m(t0, t1)
     x3 = a_(x3, x3)
+    return torch.stack([x3, y3, z3], dim=-2)
+
+
+def _double_stacked(c: CurveSpec, p: torch.Tensor) -> torch.Tensor:
+    """`double` with its independent products and sums stacked as in
+    `_add_stacked`."""
+    f = c.base
+    x, y, z = p.unbind(-2)
+
+    t0, yz, t2, xy = ffl.mul(f, torch.stack([y, y, z, x]), torch.stack([y, z, z, y]))
+    z3 = ffl.add(f, t0, t0)
+    t2 = ffl.mul_small(f, t2, B3)
+    # z3 = 4 t0, y3 = t0 + t2, t1 = 2 t2; then z3 = 8 t0, t2 = 3 t2
+    z3, y3, t1 = ffl.add(f, torch.stack([z3, t0, t2]), torch.stack([z3, t2, t2]))
+    z3, t1 = ffl.add(f, torch.stack([z3, t1]), torch.stack([z3, t2]))
+    t0 = ffl.sub(f, t0, t1)
+    # x3 = t2 z3, z3 = y z z3, y3 = t0 y3, x3' = t0 x y
+    x3, z3, y3, xy = ffl.mul(f, torch.stack([t2, yz, t0, t0]), torch.stack([z3, z3, y3, xy]))
+    y3, x3 = ffl.add(f, torch.stack([x3, xy]), torch.stack([y3, xy]))
     return torch.stack([x3, y3, z3], dim=-2)
 
 

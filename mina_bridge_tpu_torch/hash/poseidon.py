@@ -3,7 +3,7 @@ host (Python int) sponge.
 
 Counterpart of mina_bridge_tpu/hash/poseidon.py: `permute`, `Sponge`,
 `hash_fixed`, `run_transcript` and the host `HostSponge` /
-`host_permute_py` / `host_permute_round`. Width 3, rate 2, 55 full rounds; each round applies the
+`host_hash` / `host_permute_py` / `host_permute_round`. Width 3, rate 2, 55 full rounds; each round applies the
 x^7 sbox to every word, then the MDS matrix, then the round constants.
 
 Device state has shape (..., 3, 22) (ffl REP limbs). `run_transcript`
@@ -32,6 +32,7 @@ __all__ = [
     "Sponge",
     "run_transcript",
     "HostSponge",
+    "host_hash",
     "host_permute_py",
     "host_permute_round",
 ]
@@ -302,3 +303,11 @@ class HostSponge:
         out = self.state[self.offset]
         self.offset += 1
         return out
+
+
+def host_hash(ps: PoseidonSpec, inputs: list[int]) -> int:
+    """The sponge hash of `inputs` on Python ints: absorb each, squeeze one."""
+    sponge = HostSponge(ps)
+    for x in inputs:
+        sponge.absorb(x)
+    return sponge.squeeze()

@@ -6,15 +6,19 @@ is the public input) and its witness, `make_fixture` (setup and `batch`
 proofs with `random.Random(20260820)`, on the card unless "cpu"), the
 hex-int JSON documents (`_index_doc`, `_proof_doc`, `save_fixture`) and
 the loader (`_index_from_doc`, `_proof_from_doc`, `load_fixture`,
-`fixture_path`). fixtures/kimchi_2e<log_n>_b<B>.json.gz hold an index's
-commitments and B proofs; the port's proofs equal them document for
-document.
+`fixture_path`, `get_fixture`). fixtures/kimchi_2e<log_n>_b<B>.json.gz
+hold an index's commitments and B proofs; the port's proofs equal them
+document for document. `more_proofs` and `merge_fixture` are the
+counterparts of scripts/gen_more_proofs.py and scripts/merge_fixture.py:
+more proofs of the same circuit, and a larger fixture from two files
+(scripts/torch_make_fixtures.py runs them).
 """
 
 from __future__ import annotations
 
 import gzip
 import json
+import os
 import pathlib
 import random
 
@@ -28,6 +32,7 @@ from .domain import Domain
 from .prover_host import HostProof, VerifierIndexHost
 
 FIXTURES = pathlib.Path(__file__).resolve().parents[2] / "fixtures"
+CACHE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "fixtures"  # get_fixture's own fixtures
 
 
 def fixture_path(log_n: int, batch: int) -> pathlib.Path:
@@ -153,11 +158,23 @@ def _proof_doc(pr: HostProof) -> dict:
     }
 
 
-def save_fixture(path: pathlib.Path, index, proofs) -> None:
-    doc = {"index": _index_doc(index), "proofs": [_proof_doc(p) for p in proofs]}
+def write_doc(path: pathlib.Path, doc: dict) -> None:
+    """A gzipped JSON document written under a temporary name, then
+    renamed, so a reader never sees half a file."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    with gzip.open(path, "wt") as f:
+    tmp = path.with_name(f".{path.name}.{os.getpid()}")
+    with gzip.open(tmp, "wt") as f:
         json.dump(doc, f)
+    os.replace(tmp, path)
+
+
+def read_doc(path: pathlib.Path) -> dict:
+    with gzip.open(path, "rt") as f:
+        return json.load(f)
+
+
+def save_fixture(path: pathlib.Path, index, proofs) -> None:
+    write_doc(path, {"index": _index_doc(index), "proofs": [_proof_doc(p) for p in proofs]})
 
 
 def _unpt(v):
@@ -216,6 +233,78 @@ def _proof_from_doc(pd: dict) -> HostProof:
 
 def load_fixture(path: pathlib.Path, curve: CurveSpec = PALLAS):
     """-> (VerifierIndexHost, [HostProof])."""
-    with gzip.open(path, "rt") as f:
-        doc = json.load(f)
+    doc = read_doc(path)
     return _index_from_doc(doc["index"], curve), [_proof_from_doc(pd) for pd in doc["proofs"]]
+
+
+def get_fixture(log_n: int = 16, batch: int = 2, device=None):
+    """The committed fixture, else the one in CACHE_DIR, else one made by
+    make_fixture on `device` (the card unless "cpu") and kept in CACHE_DIR.
+    -> (VerifierIndexHost, [HostProof])."""
+    cached = CACHE_DIR / fixture_path(log_n, batch).name
+    for path in (fixture_path(log_n, batch), cached):
+        if path.exists():
+            return load_fixture(path)
+    index, proofs = make_fixture(log_n, batch, device=device)
+    save_fixture(cached, index, proofs)
+    return index, proofs
+
+
+def more_proofs(log_n: int, x0_start: int, count: int, out: pathlib.Path, device=None) -> list[dict]:
+    """`count` more proofs of the chain circuit at 2^log_n, witnesses x0 =
+    x0_start .. x0_start + count - 1, proof x0 with its own
+    random.Random(20260820 * 1000 + x0), as scripts/gen_more_proofs.py
+    makes them. The index must equal the committed 8-proof fixture's where
+    there is one. Writes {"index", "proofs"} (the new proofs only) to
+    `out` after every proof; returns the proof documents."""
+    import logging
+    import time
+
+    fs = PALLAS.scalar
+    n_gates = max(1, min((1 << log_n) - 16, (1 << log_n) // 2))
+    circuit = build_chain_circuit(fs, log_n, n_gates)
+    srs = load_srs("pallas", circuit.n)
+    g, h = srs["g"], _srs_h(srs)
+    index = prover_host.setup(circuit, PALLAS, g, h, device=device)
+    index_doc = _index_doc(index)
+    ref = fixture_path(log_n, 8)
+    if ref.exists() and read_doc(ref)["index"] != index_doc:
+        raise RuntimeError(f"the 2^{log_n} index differs from {ref.name}'s")
+    docs = []
+    for x0 in range(x0_start, x0_start + count):
+        t0 = time.perf_counter()
+        w, pub = chain_witness(fs, circuit, n_gates, x0)
+        docs.append(_proof_doc(prover_host.prove(index, circuit, w, pub, g, h, random.Random(20260820 * 1000 + x0),
+                                                 device=device)))
+        write_doc(out, {"index": index_doc, "proofs": docs})
+        logging.getLogger(__name__).info("proof x0=%d in %.1f s", x0, time.perf_counter() - t0)
+    return docs
+
+
+def merge_fixture(base: pathlib.Path, extra: pathlib.Path, out: pathlib.Path, batch: int, device=None) -> None:
+    """The first `batch` proofs of `base` then `extra` (same index, distinct
+    public inputs), each checked by the port's batched verify on `device`
+    (the card unless "cpu") before `out` is written, as
+    scripts/merge_fixture.py checks each with its host verify."""
+    import numpy as np
+    import torch
+
+    from .. import device as _device
+    from ..fields.params import NLIMBS, int_to_limbs
+    from . import verifier as kv
+
+    bdoc, edoc = read_doc(base), read_doc(extra)
+    if bdoc["index"] != edoc["index"]:
+        raise ValueError("the two files hold different indexes")
+    docs = (bdoc["proofs"] + edoc["proofs"])[:batch]
+    if len(docs) < batch or len({tuple(d["public"]) for d in docs}) != batch:
+        raise ValueError(f"need {batch} distinct proofs, have {len({tuple(d['public']) for d in docs})}")
+    index, proofs = _index_from_doc(bdoc["index"], PALLAS), [_proof_from_doc(d) for d in docs]
+    dev = _device(device)
+    dindex = kv.DeviceVerifierIndex.from_host(index, load_srs("pallas", index.chunk_size), dev)
+    weights = torch.as_tensor(np.array([[int_to_limbs(int.from_bytes(os.urandom(16), "little"), NLIMBS)
+                                         for _ in range(2)] for _ in proofs]), device=dev)
+    hint = kv.host_public_commitments(dindex, [p.public for p in proofs])
+    if kv.verify(dindex, kv.DeviceProofs.from_host(proofs, dev), weights, pub_comm_hint=hint) is not True:
+        raise ValueError("the merged proofs do not verify")
+    write_doc(out, {"index": bdoc["index"], "proofs": docs})

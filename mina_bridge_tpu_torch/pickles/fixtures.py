@@ -8,14 +8,19 @@ unless "cpu", as the JAX package proved the committed files. fixtures/pickles_2e
 hold B tips (wrap 2^17 on Pallas, step 2^18 on Vesta) and both verifier
 indexes' commitments as hex-int JSON, so neither index is rebuilt from
 its circuit. `device_index` puts such a host index on a device (the toy
-Proof-of-State fixture's too, bridge/fixtures.py).
+Proof-of-State fixture's too, bridge/fixtures.py). `make_tips_range` and
+`merge_tips` are the counterparts of scripts/gen_pickles_tips_range.py
+and scripts/merge_pickles_fixtures.py: a range of make_tips's schedule
+to a partial file, checkpointed after every tip, and the partial files
+joined into one (scripts/torch_make_fixtures.py runs them).
 """
 
 from __future__ import annotations
 
-import gzip
-import json
+import logging
 import pathlib
+import random
+import time
 
 from .. import device as _device
 from ..curves.host import PALLAS, VESTA
@@ -33,8 +38,6 @@ def make_tips(block_log_n: int, step_log_n: int, batch: int, state_hashes=None, 
               timings: list | None = None) -> list[pv.TipProof]:
     """Prove `batch` tips binding distinct state hashes (pickles prove_tip);
     timings, when given, receives each tip's prove_tip timings."""
-    import random
-
     if state_hashes is None:
         state_hashes = [0x5A5A + 7 * i for i in range(batch)]
     tips = []
@@ -65,9 +68,7 @@ def save_tips(path: pathlib.Path, block_log_n: int, step_log_n: int, tips: list[
         doc["wrap_index"] = bf._index_doc(wrap_index)
     if step_index is not None:
         doc["step_index"] = bf._index_doc(step_index)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with gzip.open(path, "wt") as f:
-        json.dump(doc, f)
+    bf.write_doc(path, doc)
 
 
 def _tip_undoc(d: dict) -> pv.TipProof:
@@ -82,12 +83,49 @@ def _tip_undoc(d: dict) -> pv.TipProof:
 def load_tips(path: pathlib.Path):
     """-> (block_log_n, step_log_n, [TipProof], wrap host index or None,
     step host index or None)."""
-    with gzip.open(path, "rt") as f:
-        doc = json.load(f)
+    doc = bf.read_doc(path)
     tips = [_tip_undoc(td) for td in doc["tips"]]
     index = bf._index_from_doc(doc["wrap_index"], PALLAS) if "wrap_index" in doc else None
     step_index = bf._index_from_doc(doc["step_index"], VESTA) if "step_index" in doc else None
     return doc["block_log_n"], doc["step_log_n"], tips, index, step_index
+
+
+def make_tips_range(block_log_n: int, step_log_n: int, start: int, count: int, out: pathlib.Path, device=None,
+                    timings: list | None = None) -> list[pv.TipProof]:
+    """Tips start .. start + count - 1 of make_tips's schedule (state hash
+    0x5A5A + 7 i, random.Random(0xF1C5 + i)) on `device`, written to `out`
+    with both indexes after every tip, so that a lost run keeps what it
+    proved and merge_tips needs no setup."""
+    w_index = pv.wrap_setup(block_log_n, step_log_n, device)[2]
+    s_index = pv.step_setup(step_log_n, device)[1]
+    tips: list[pv.TipProof] = []
+    for i in range(start, start + count):
+        t0 = time.perf_counter()
+        tips += make_tips(block_log_n, step_log_n, 1, [0x5A5A + 7 * i], [random.Random(0xF1C5 + i)], device, timings)
+        save_tips(out, block_log_n, step_log_n, tips, w_index, s_index)
+        logging.getLogger(__name__).info("tip %d in %.1f s", i, time.perf_counter() - t0)
+    return tips
+
+
+def merge_tips(out: pathlib.Path, parts: list[pathlib.Path], device=None) -> int:
+    """The tips of `parts`, in order (all of one shape), written to `out`
+    with the first indexes a part carries, else ones built on `device`.
+    Returns the number of tips."""
+    shape, tips, w_index, s_index = None, [], None, None
+    for path in parts:
+        bl, sl, part, wi, si = load_tips(path)
+        if shape not in (None, (bl, sl)):
+            raise ValueError(f"{path}: shape {(bl, sl)} != {shape}")
+        shape = (bl, sl)
+        tips += part
+        w_index = wi if w_index is None else w_index
+        s_index = si if s_index is None else s_index
+    if w_index is None:
+        w_index = pv.wrap_setup(*shape, device)[2]
+    if s_index is None:
+        s_index = pv.step_setup(shape[1], device)[1]
+    save_tips(out, *shape, tips, w_index, s_index)
+    return len(tips)
 
 
 def device_index(host_index, device: str | None = None):

@@ -9,8 +9,9 @@ Counterpart of mina_bridge_tpu/pickles/verifier.py: the verifying half
 the in-circuit transcript replay `_transcript_gadget` / `_transcript_fill`,
 `_const_cell`, the prechallenge range gadget `_prechal_gadget` /
 `_prechal_fill`, `_step_schedule`, `_step_absorb_values`, `wrap_setup`,
-`block_setup`, `step_setup`, `dummy_accumulator` and `prove_tip`), which
-run on the prover's device (the card unless "cpu"). `wrap_circuit` is
+`block_setup`, `step_setup`, `step_device_index`, `dummy_accumulator`
+and `prove_tip`), which run on the prover's device (the card unless
+"cpu"). `wrap_circuit` is
 `wrap_setup`'s circuit and gadget alone, from a given step index digest.
 `prove_tip` checks its step proof with the port's batched verify on a
 batch of one, where the JAX package runs its host verify.
@@ -84,10 +85,23 @@ def _srs_for(curve_name: str, n: int) -> tuple[np.ndarray, tuple[int, int]]:
     return srs["g"], (limbs_to_int(srs["h"][0]), limbs_to_int(srs["h"][1]))
 
 
-@functools.cache
+def _device_key(device: str | None) -> str:
+    """The cache key of a device: None, "cuda" and "cuda:N" name the same
+    card, so the setups below are built once per card and process."""
+    dev = _device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def _setup(curve_name: str, log_n: int, npub: int = 1, device: str | None = None):
     """(circuit, index, device index, g, h) of a hash-binding circuit over
-    the named curve with `npub` public inputs."""
+    the named curve with `npub` public inputs, built once per device."""
+    return _setup_on(curve_name, log_n, npub, _device_key(device))
+
+
+@functools.cache
+def _setup_on(curve_name: str, log_n: int, npub: int, device: str):
     curve = {"pallas": PALLAS, "vesta": VESTA}[curve_name]
     b = CircuitBuilder(curve.scalar, log_n)
     for _ in range(npub):
@@ -399,9 +413,14 @@ def wrap_circuit(log_n: int, step_log_n: int, step_digest: int):
     return b.build(), gadget
 
 
-@functools.cache
 def wrap_setup(log_n: int = BLOCK_LOG_N, step_log_n: int = STEP_LOG_N, device: str | None = None):
-    """Wrap-side (Pallas) setup: (circuit, gadget, index, device index, g, h)."""
+    """Wrap-side (Pallas) setup: (circuit, gadget, index, device index, g,
+    h), built once per device."""
+    return _wrap_setup_on(log_n, step_log_n, _device_key(device))
+
+
+@functools.cache
+def _wrap_setup_on(log_n: int, step_log_n: int, device: str):
     _, s_index, _, _, _ = step_setup(step_log_n, device)
     circuit, gadget = wrap_circuit(log_n, step_log_n, s_index.digest())
     g, h = _srs_for("pallas", circuit.n)
@@ -421,6 +440,11 @@ def block_setup(log_n: int = BLOCK_LOG_N, step_log_n: int | None = None, device:
 def step_setup(log_n: int = STEP_LOG_N, device: str | None = None):
     """Step-side (Vesta) setup: (circuit, index, device index, g, h)."""
     return _setup("vesta", log_n, 1, device)
+
+
+def step_device_index(step_log_n: int = STEP_LOG_N, device: str | None = None) -> kv.DeviceVerifierIndex:
+    """The step (Vesta) verifier index on `device`, from step_setup."""
+    return step_setup(step_log_n, device)[2]
 
 
 def dummy_accumulator(curve_name: str = "pallas", log_n: int = BLOCK_LOG_N):
@@ -590,21 +614,29 @@ def _device_deferred_digest(acc_prechals: torch.Tensor, acc_sg: torch.Tensor) ->
 def batch_verify_tips(
     dtips: DeviceTips,
     rand_weights: torch.Tensor,
-    dindex: kv.DeviceVerifierIndex | None,
-    step_dindex: kv.DeviceVerifierIndex | None,
+    dindex: kv.DeviceVerifierIndex | None = None,
+    step_dindex: kv.DeviceVerifierIndex | None = None,
+    log_n: int = BLOCK_LOG_N,
+    step_log_n: int | None = None,
 ) -> bool:
     """Verify B tips; one bool for the batch (see the module docstring for
     the checks and their order).
 
     rand_weights: (B, 5, 20): (w, rho) of the wrap opening, the legacy
     decider's weight, (w, rho) of the step opening. dindex, step_dindex:
-    the wrap (Pallas) and step (Vesta) verifier indexes, both required
-    (pickles/fixtures.py loads them); the legacy decider folds over the
-    step index's SRS prefix."""
-    if dindex is None or step_dindex is None:
-        raise ValueError("batch_verify_tips needs both the wrap and the step verifier index")
+    the wrap (Pallas) and step (Vesta) verifier indexes, e.g. from a
+    committed fixture (pickles/fixtures.py); a missing one is built on the
+    tips' device by block_setup(log_n, step_log_n) or
+    step_device_index(step_log_n), once per process. The legacy decider
+    folds over the step opening's SRS prefix."""
     if rand_weights.shape[1] < 5:
         raise ValueError(f"rand_weights must be (B, 5, 20): wrap w/rho, decider, step w/rho; got {tuple(rand_weights.shape)}")
+    step_log_n = STEP_LOG_N if step_log_n is None else step_log_n
+    dev = str(dtips.acc_sg.device)
+    if dindex is None:
+        dindex = block_setup(log_n, step_log_n, dev)[2]
+    if step_dindex is None and dtips.step is not None:
+        step_dindex = step_device_index(step_log_n, dev)
     wrap, step = dtips.wrap, dtips.step
     digest = _device_deferred_digest(dtips.acc_prechals, dtips.acc_sg)
     if not bool((digest == wrap.public[:, 1]).all()):
@@ -622,7 +654,10 @@ def batch_verify_tips(
             bind_prechals=dtips.acc_prechals,
         )
     else:
-        g = step_dindex.g_affine[: 1 << acc_log_n(step_dindex.log_n)]  # the SRS prefix the step opening folded
+        if step_dindex is not None:  # the SRS prefix the step opening folded
+            g = step_dindex.g_affine[: 1 << acc_log_n(step_dindex.log_n)]
+        else:
+            g = torch.as_tensor(load_srs("vesta", 1 << acc_log_n(step_log_n))["g"], device=dtips.acc_sg.device)
         step_ok = ipa.batch_decide(VESTA, g, dtips.acc_prechals, dtips.acc_sg, rand_weights[:, 2])
     if not step_ok:
         return False

@@ -108,9 +108,10 @@ def _imports(src: str) -> list[tuple[int, str]]:
 
 
 def test_port_imports_no_jax():
-    """No module of the port and not chip_smoke.py imports jax or the JAX
-    package anywhere."""
-    sources = sorted((ROOT / "mina_bridge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No module of the port, none of its scripts (scripts/torch_*.py) and
+    not chip_smoke.py imports jax or the JAX package anywhere."""
+    sources = (sorted((ROOT / "mina_bridge_tpu_torch").rglob("*.py")) + sorted((ROOT / "scripts").glob("torch_*.py"))
+               + [ROOT / "chip_smoke.py"])
     bad = [f"{p.relative_to(ROOT)}:{line} {name}" for p in sources for line, name in _imports(p.read_text()) if _forbidden(name)]
     assert len(sources) > 40 and not bad, bad
 
@@ -332,6 +333,71 @@ def test_pos_fixture(pos):
         assert tip.wrap.public[0] == tpub.candidate_chain_state_hashes[-1] and tip.step is not None
 
 
+def test_make_pos_fixture_rebuilds_the_toy_fixture(pos, tmp_path, monkeypatch):
+    """bridge/fixtures.py::make_pos_fixture at the toy domains, in two
+    ranges (proofs 0-2, then 3-7) merged by merge_pos_fixtures, with a
+    tip_prover that hands back the committed tip of the state hash it is
+    asked for (no proving on the CPU) and the toy setups replaced by the
+    committed indexes (building them costs minutes here): the merged
+    document, and the two ranges' proofs, are fixtures/pos_2e10_s2e4_b8.json.gz
+    byte for byte (decompressed), as scripts/make_pos_fixture.py wrote it."""
+    t = pos["t"]
+    tips = {p.tip_proof().wrap.public[0]: p.tip_proof() for p in t["proofs"]}
+    asked = []
+
+    def tip_prover(state_hash, rng):
+        assert isinstance(rng, random.Random)
+        asked.append(state_hash)
+        return tips[state_hash]
+
+    monkeypatch.setattr(tpv, "block_setup", lambda log_n, step_log_n, device: (None, t["wrap_index"], None, None, None))
+    monkeypatch.setattr(tpv, "step_setup", lambda log_n, device: (None, t["step_index"], None, None, None))
+    kw = dict(device="cpu", tip_prover=tip_prover)
+    first = tfx.make_pos_fixture(start=0, count=3, out=tmp_path / "a.json.gz", **kw)
+    rest = tfx.make_pos_fixture(start=3, out=tmp_path / "b.json.gz", **kw)
+    assert tfx.merge_pos_fixtures(tmp_path / "ab.json.gz", [tmp_path / "a.json.gz", tmp_path / "b.json.gz"]) == 8
+    with gzip.open(tfx.POS_FIXTURE, "rb") as f:
+        want = f.read()
+    with gzip.open(tmp_path / "ab.json.gz", "rb") as f:
+        assert f.read() == want
+    assert json.dumps(dict(first, proofs=first["proofs"] + rest["proofs"])).encode() == want
+    assert asked == [p.candidate_chain_state_hashes[-1] for p in t["pubs"]]
+    assert tfx.pos_fixture_path(10, 4, 8) == tfx.POS_FIXTURE
+
+
+def test_real_scale_pos_fixture():
+    """fixtures/pos_2e17_s2e18_b8.json.gz, banked on the card by
+    make_pos_fixture: 8 proofs of the toy file's chains (the JAX package's
+    make_state_proof from seed 0x5057 gives proof 0's pub input and
+    states), each tip at wrap 2^17 / step 2^18 binding its own chain's tip
+    hash, and both index docs those of fixtures/pickles_2e17_s2e18_b8.json.gz
+    (the same circuits)."""
+    path = tfx.pos_fixture_path(17, 18, 8)
+    with gzip.open(path, "rt") as f:
+        doc = json.load(f)
+    with gzip.open(ROOT / "fixtures" / "pickles_2e17_s2e18_b8.json.gz", "rt") as f:
+        tips_doc = json.load(f)
+    assert (doc["wrap_index"], doc["step_index"]) == (tips_doc["wrap_index"], tips_doc["step_index"])
+    t = tfx.load_pos_fixture(path)
+    assert (t["block_log_n"], t["step_log_n"], t["seeds"]) == (17, 18, [tfx.POS_SEED + i for i in range(8)])
+    for pub, proof in zip(t["pubs"], t["proofs"]):
+        tip = proof.tip_proof()
+        assert tip.wrap.public[0] == pub.candidate_chain_state_hashes[-1] and tip.step is not None
+        assert (len(tip.step_acc_prechals), len(tip.wrap.prev_challenges)) == (16, 2)
+    jpub, jproof, _, _ = jfx.make_state_proof(random.Random(tfx.POS_SEED))
+    assert t["pubs"][0].encode() == jpub.encode()
+    assert t["proofs"][0].candidate_chain_states == jproof.candidate_chain_states
+    assert t["proofs"][0].bridge_tip_state == jproof.bridge_tip_state
+
+
+def test_service_defaults_follow_the_jax_service():
+    """A default-constructed CudaVerifierService: the toy domains and no
+    preloaded index, as TpuVerifierService()."""
+    t, j = tal.CudaVerifierService(device="cpu"), jal.TpuVerifierService()
+    assert (t.block_log_n, t.step_log_n, t.dindex, t.step_dindex, t.require_step_proofs) == (
+        j.block_log_n, j.step_log_n, j.dindex, j.step_dindex, j.require_step_proofs) == (10, None, None, None, True)
+
+
 def _host_reason(pub, proof, tip) -> str:
     """The JAX package's host checks of one proof, in its order, on the JAX
     package's host oracles (host Poseidon, candidate_wins): the reason of
@@ -509,7 +575,7 @@ def served(pos):
     mp.setattr(tpv, "batch_verify_tips", _stub(t_calls, lambda x: [limbs_to_int(r) for r in x.numpy()], tpv.batch_verify_tips))
     mp.setattr(jpk, "batch_verify_tips", _stub(j_calls, _to_ints))
     try:
-        tsvc = tal.CudaVerifierService(pos["wi"], pos["si"], device="cpu")
+        tsvc = tal.CudaVerifierService(dindex=pos["wi"], step_dindex=pos["si"], device="cpu")
         t_states = tsvc.submit_states(
             [tpm.MinaStatePubInputs.decode(p.encode()) for p, _, _ in cases],
             [tpm.MinaStateProof.decode(q.encode()) for _, q, _ in cases],
@@ -523,7 +589,7 @@ def served(pos):
         )
     finally:
         mp.undo()
-    asvc = tal.CudaVerifierService(pos["wi"], pos["si"], device="cpu")
+    asvc = tal.CudaVerifierService(dindex=pos["wi"], step_dindex=pos["si"], device="cpu")
     t_accounts = asvc.submit_accounts(
         [tpm.MinaAccountPubInputs.decode(p.encode()) for p, _ in accounts],
         [tpm.MinaAccountProof.decode(q.encode()) for _, q in accounts],
@@ -631,7 +697,7 @@ def test_service_refuses_tips_without_step_proofs(pos):
     JAX package's reason, and leaves nothing to commit."""
     t = pos["t"]
     tip = dataclasses.replace(t["proofs"][0].tip_proof(), step=None)
-    svc = tal.CudaVerifierService(pos["wi"], pos["si"], device="cpu")
+    svc = tal.CudaVerifierService(dindex=pos["wi"], step_dindex=pos["si"], device="cpu")
     got = svc.submit_states(t["pubs"][:1], t["proofs"][:1], [tip])
     assert [(r.ok, r.reason) for r in got] == [(False, "tip proof missing wrapped step proof")] and not svc.pending
     with pytest.raises(ValueError):

@@ -308,7 +308,7 @@ def test_states_service(dev):
 
 def test_operator_path(dev):
     """The SDK on the card against the port's mock nodes (cli.make_sdk, the
-    CLI's wiring): fixture proof 0's chain is bridged through the toy tips
+    CLI's wiring, its toy indexes built on the card): fixture proof 0's chain is bridged through the toy tips
     verify and stored, a repeat returns False, and a zkApp and a plain
     account at depth 35 are validated with their pub inputs."""
     from mina_bridge_tpu_torch import cli
@@ -335,7 +335,7 @@ def test_operator_path(dev):
         want.append(encode_account_pub_inputs_evm(pm.MinaAccountPubInputs(ledger_hash=root, encoded_account=encode_account_sol(a))))
     client = eth.EthClient(eth_node, ANVIL_CHAIN_ID, eth.Wallet(ANVIL_PRIVATE_KEY))
     sdk = cli.make_sdk(client, mina_graphql.MinaClient(mina_node), eth_node.state_contract_addr,
-                       eth_node.account_contract_addr, cli.verifier_indexes("cuda"), "cuda")
+                       eth_node.account_contract_addr, device="cuda")  # the toy indexes built on the card
     assert sdk.update_bridge_chain(proof.bridge_tip_state) is True
     assert eth_node.state.state_hashes == pub.candidate_chain_state_hashes
     assert sdk.update_bridge_chain(proof.bridge_tip_state) is False

@@ -103,6 +103,23 @@ def test_curve_boundary_helpers():
     assert cv.to_affine_ints(PALLAS, cv.scalar_mul(PALLAS, bits, batch)) == [jhc.mul(jhc.PALLAS, k, pt) for pt in aff]
 
 
+@pytest.mark.parametrize("lanes", [1, cv.STACK_MAX + 8])
+def test_stacked_point_ops_equal_one_op_at_a_time(lanes):
+    """add and double up to STACK_MAX lanes stack their independent field
+    ops (`_add_stacked`, `_double_stacked`), above it run one op at a time:
+    both forms give the same limbs, identity lanes and a broadcast q
+    included, and the right points."""
+    rng = random.Random(13 + lanes)
+    p = pk.from_rows(_rows(rng, lanes, identity_lanes=(0,)))
+    q = pk.from_rows(_rows(rng, 1))
+    got = {"add": cv._add_stacked(PALLAS, p, q), "double": cv._double_stacked(PALLAS, p)}
+    if lanes > cv.STACK_MAX:
+        assert torch.equal(got["add"], cv.add(PALLAS, p, q)) and torch.equal(got["double"], cv.double(PALLAS, p))
+    aff, [q0] = cv.to_affine_ints(PALLAS, p), cv.to_affine_ints(PALLAS, q)
+    assert cv.to_affine_ints(PALLAS, got["add"]) == [jhc.add(jhc.PALLAS, a, q0) for a in aff]
+    assert cv.to_affine_ints(PALLAS, got["double"]) == [jhc.add(jhc.PALLAS, a, a) for a in aff]
+
+
 @pytest.mark.parametrize("W, G, T, k", [(1, 8, 1, 1), (2, 4, 3, 2), (4, 2, 2, 3)])
 def test_scan_and_doubling_chains_match_pallas_bodies(W, G, T, k):
     """The two chains that the card runs in one launch each, through their

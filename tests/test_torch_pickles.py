@@ -152,10 +152,31 @@ def test_batch_verify_tips_matches_host_oracle(toy, kind, want):
     assert pv.batch_verify_tips(dt, _rw(2), toy["wi"], toy["si"]) is want
 
 
-def test_batch_verify_tips_needs_both_indexes(toy):
+def test_batch_verify_tips_needs_both_indexes(toy, monkeypatch):
+    """A missing index is built on the tips' device: the wrap index by
+    block_setup(log_n, step_log_n), the step index by
+    step_device_index(step_log_n) (stand-ins here that hand back the toy
+    indexes: building the wrap index costs tens of seconds on this CPU),
+    both before any check; a batch with a wrong digest then fails its
+    first check. Weights of fewer than 5 components raise."""
     _, dt = _carry(toy["tips"])
-    with pytest.raises(ValueError):
-        pv.batch_verify_tips(dt, _rw(2), toy["wi"], None)
+    calls = []
+
+    def block_setup(log_n, step_log_n, device):
+        calls.append(("wrap", log_n, step_log_n, device))
+        return None, None, toy["wi"], None, None
+
+    def step_device_index(step_log_n, device):
+        calls.append(("step", step_log_n, device))
+        return toy["si"]
+
+    monkeypatch.setattr(pv, "block_setup", block_setup)
+    monkeypatch.setattr(pv, "step_device_index", step_device_index)
+    bad = dt.map(torch.clone)
+    bad.wrap.public[0, 1, 0] ^= 1
+    assert pv.batch_verify_tips(bad, _rw(2)) is False
+    assert pv.batch_verify_tips(bad, _rw(2), toy["wi"], log_n=12, step_log_n=5) is False
+    assert calls == [("wrap", pv.BLOCK_LOG_N, pv.STEP_LOG_N, "cpu"), ("step", pv.STEP_LOG_N, "cpu"), ("step", 5, "cpu")]
     with pytest.raises(ValueError):
         pv.batch_verify_tips(dt, _rw(2)[:, :3], toy["wi"], toy["si"])
 
@@ -249,8 +270,8 @@ def test_tip_verdicts_isolates_bad_tip(toy, monkeypatch, bad):
     four.acc_sg[:, 0, 0] = torch.arange(4)  # each tip's tag
     calls = []
 
-    def stub(tp, rw, dindex, step_dindex):
-        assert dindex == "wrap" and step_dindex == "step"
+    def stub(tp, rw, dindex, step_dindex, log_n, step_log_n):
+        assert dindex == "wrap" and step_dindex == "step" and (log_n, step_log_n) == (pv.BLOCK_LOG_N, None)
         tags = tp.acc_sg[:, 0, 0].tolist()
         assert len(tags) == rw.shape[0] and len(tags) >= 2 and len(tags) & (len(tags) - 1) == 0
         calls.append(sorted(set(tags)))

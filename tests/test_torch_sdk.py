@@ -22,6 +22,7 @@ two 2^10 MSMs, seconds on the CPU).
 """
 
 import dataclasses
+import functools
 import json
 import random
 
@@ -421,8 +422,8 @@ def world():
             blocks[key] = plain(ps, state, adds)
         return blocks[key].clone()
 
-    def served_tip(tips, rw, dindex, step_dindex):
-        assert (dindex, step_dindex) == indexes and rw.shape[0] == 2
+    def served_tip(tips, rw, dindex, step_dindex, log_n, step_log_n):
+        assert (dindex, step_dindex) == indexes and rw.shape[0] == 2 and (log_n, step_log_n) == (10, None)
         assert all(torch.equal(a, b) for a, b in zip(_tip_tensors(tips), _tip_tensors(served)))
         verifies.append(rw)
         return True
@@ -559,16 +560,46 @@ def test_validate_account(world):
     assert len(eth_node.account.validated) == 2 and eth_node.nonces == 4
 
 
+def _losing_nodes(world):
+    """Mock nodes whose candidate chain (fixture proof 0's) loses to the
+    bridged tip under the consensus check: the contract is rooted at a
+    tip of blockchain length 1,000 (fixtures.make_state, the candidate's
+    lock checkpoint, so a short-range fork), which the Mina node serves
+    under its hash."""
+    fx = world["fx"]
+    pub, proof = fx["pubs"][0], fx["proofs"][0]
+    longer = jfx.make_state(random.Random(0x10C6), 555, 1000, 900)
+    longer_hash = jpm.host_full_state_hash(longer)
+    mina = tmock.MockMinaNode([jmt.PROTOCOL_STATE.encode(longer)] + proof.candidate_chain_states,
+                              TIP_PROOF.encode(proof.candidate_tip_proof), [longer_hash] + pub.candidate_chain_state_hashes)
+    return tmock.MockEthNode(longer_hash), mina
+
+
 @pytest.mark.parametrize("case", ["submit-state", "submit-account", "forged tip"])
-def test_cli(world, case, tmp_path, monkeypatch):
+def test_cli(world, case, tmp_path, monkeypatch, caplog):
     """cli.main(..., device="cpu") against the mock nodes served over HTTP
     on 127.0.0.1 (the JSON-RPC and GraphQL transports as an operator's):
     0 with the chain, or the account's pub input, on the contract; 1 for a
-    chain served with another proof's tip, the contract unchanged."""
+    candidate chain that loses to the bridged tip (`_losing_nodes`: the
+    case the JAX CLI rejects too, now that the CLI proves its own tip),
+    the contract unchanged. submit-state proves a toy tip for the
+    candidate tip's hash: here prove_tip is a check that it was asked for
+    that hash on the CPU, handing back fixture proof 0's tip, and the
+    service gets the fixture's indexes through make_sdk's `indexes` (the
+    CLI's own are built on the card, chip_smoke.py phase 9)."""
     fx = world["fx"]
     _clean_env(monkeypatch, tmp_path)
-    monkeypatch.setattr(tcli, "verifier_indexes", lambda device: world["indexes"])
-    eth_node, mina_node = _nodes(world, 0, tip_of=1 if case == "forged tip" else None)
+    monkeypatch.setattr(tcli, "make_sdk", functools.partial(tcli.make_sdk, indexes=world["indexes"]))
+    proved = []
+
+    def prove_tip(state_hash, device=None):
+        assert device == "cpu"
+        proved.append(state_hash)
+        return fx["proofs"][0].tip_proof()
+
+    monkeypatch.setattr(tpv, "prove_tip", prove_tip)
+    eth_node, mina_node = _losing_nodes(world) if case == "forged tip" else _nodes(world, 0)
+    root = eth_node.state.state_hashes[-1]
     args = ["submit-state", "--devnet"]
     if case == "submit-account":
         account, blob, path, ledger = _account(8, True)  # test_validate_account's zkApp
@@ -580,14 +611,16 @@ def test_cli(world, case, tmp_path, monkeypatch):
         monkeypatch.setenv("STATE_SETTLEMENT_ETH_ADDR", "0x" + eth_node.state_contract_addr.hex())
         monkeypatch.setenv("ACCOUNT_VALIDATION_ETH_ADDR", "0x" + eth_node.account_contract_addr.hex())
         rc = tcli.main(args, device="cpu")
+    assert proved == ([] if case == "submit-account" else [fx["pubs"][0].candidate_chain_state_hashes[-1]])
     if case == "submit-state":
         assert rc == 0 and eth_node.state.state_hashes == fx["pubs"][0].candidate_chain_state_hashes
     elif case == "submit-account":
         pub = jpm.MinaAccountPubInputs(ledger_hash=ledger, encoded_account=jsol.encode_account_sol(account))
         assert rc == 0 and eth_node.account.validated == [jsol.encode_account_pub_inputs_evm(pub)]
     else:
-        assert rc == 1 and eth_node.state.state_hashes[-1] == fx["pubs"][0].bridge_tip_state_hash
+        assert rc == 1 and eth_node.state.state_hashes[-1] == root
         assert eth_node.nonces == 0 and not eth_node.registry.roots
+        assert "state proof rejected: consensus: not better" in caplog.text
 
 
 def test_cli_needs_a_card(world, tmp_path, monkeypatch):
