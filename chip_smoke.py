@@ -20,7 +20,7 @@ Phases (any failure exits non-zero and prints no result):
      fix-up and K5's lane repair also on the MSM's inputs and on seeded
      ragged inputs per curve (W G no multiple of the block, identity
      points, segments across lanes; the weighting at D = 64 and 4096, the
-     repair at G = 16 and 4096); the one-step K5 (which the verify no
+     repair at G = 16, 64, 256 and 4096); the one-step K5 (which the verify no
      longer calls) on the first up-sweep level of the recorded repair and
      seeded lanes; K7 (no caller in the system) on the first step of K6's
      recorded scan with q's Z row made explicit plus a seeded set with
@@ -337,20 +337,20 @@ def kernel_work(name: str, args) -> tuple[float, float]:
 
     point = 3 * L * LIMB_BYTES
     if name == "padd_weight_sum":
-        # buckets 1..D read, one point a window written; 2 adds a bucket in
-        # the walks, log2 S doublings a chunk, 2 adds a tree merge and an add
-        # and a doubling below the root
+        # buckets 1..D read, one point a window written; the running sums
+        # (run += B_d; tot += run) are the least work sum d B_d needs: 2 adds
+        # a bucket at 12 products a complete add (the kernel takes the b3 =
+        # 15 multiples by additions). The chunks' doublings and the tree's
+        # merges belong to the kernel's schedule, not to the function: the
+        # critical-path floor follows them.
         W, D = args[1].shape[2], args[1].shape[3] - 1
-        K, _ = pk.weight_chunks(D)
-        S = D // K
-        products = 28 * D + 9 * K * (S.bit_length() - 1) + 28 * (K - 1) + 23 * max(K - 2, 0)
-        return W * (D + 1) * point, W * products * OPS_PER_PRODUCT
+        return W * (D + 1) * point, W * 24 * D * OPS_PER_PRODUCT
     if name == "padd_fixup":
         # three digits a lane; per fix a bucket and an inflow read, the bucket written
         fixes = int(pk.fixup_need(args[3], args[2].shape[-1]).sum())
         return args[3].shape[0] * args[2].shape[-1] * 3 * 8 + fixes * 3 * point, 14 * fixes * OPS_PER_PRODUCT
-    if name == "padd_select_scan":
-        return args[1].shape[2] * args[1].shape[3] * (2 * point + 4), 14 * lane_scan_adds(args[2]) * OPS_PER_PRODUCT
+    if name == "padd_select_scan":  # 12 products an add, as the weighting's
+        return args[1].shape[2] * args[1].shape[3] * (2 * point + 4), 12 * lane_scan_adds(args[2]) * OPS_PER_PRODUCT
     p = args[1]
     n = p.shape[-1]
     if name == "padd":
@@ -485,9 +485,10 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
     set per curve at k = 1 and 13; the K6 scan, K3's weighting and fix-up
     and K5's repair the MSM's inputs, and per curve seeded ragged scans
     (W G = 111 and 90 lanes, T = 3 and 1), bucket arrays (W = 3, D = 64 and
-    4096), fix-ups (W G = 111, T = 3) and repairs (W = 3, G = 16; W = 2,
-    G = 4096, lanes in device memory). Returns {kernel: [argument tuples]}
-    of the checked-only sets."""
+    4096; W = 1, D = 64), fix-ups (W G = 111, T = 3) and repairs (W = 3,
+    G = 16: one block a window; W = 2, G = 4096; W = 3, G = 64: clusters of
+    2; W = 1, G = 256: a cluster of 8 blocks of 32 lanes). Returns
+    {kernel: [argument tuples]} of the checked-only sets."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -528,11 +529,11 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
         seeded_k5.append((curve, p, q, keep))
         k4 += [(curve, p[..., :1500].contiguous(), k) for k in (1, 13)]
         k6 += [seeded_scan(curve, 3, 37, 3, seed + 10 + i, dev), seeded_scan(curve, 2, 45, 1, seed + 20 + i, dev)]
-        k3w += [(curve, seeded_point_rows(curve, 3 * (D + 1), seed + 30 + i, 6, True).reshape(3, L, 3, D + 1).to(dev))
-                for D in (64, 4096)]
+        k3w += [(curve, seeded_point_rows(curve, W * (D + 1), seed + 30 + i, 6, True).reshape(3, L, W, D + 1).to(dev))
+                for W, D in ((3, 64), (3, 4096), (1, 64))]
         k3f.append(seeded_fixup(curve, 3, 37, 3, seed + 40 + i, dev))
         flag_rng = np.random.default_rng(seed + 50 + i)
-        for W, G in ((3, 16), (2, 4096)):
+        for W, G in ((3, 16), (2, 4096), (3, 64), (1, 256)):
             x = p[..., : W * G].reshape(3, L, W, G) if W * G <= n else p.repeat(1, 1, 2).reshape(3, L, W, G)
             k5s.append((curve, x.contiguous(), torch.as_tensor(flag_rng.random((W, G)) < 0.2, device=dev)))
     k7 = list(seeded)
@@ -724,6 +725,11 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
                                          "product": "group2"}
             row["critical_path_floor_ms"] = floor
             row["critical_path_floor_ms_per_verify"] = sum(calls.get(k, 0) * k1_floor(a)[2] for k, a in timed.items())
+        if name in ("padd_weight_sum", "padd_select_scan"):
+            from mina_bridge_tpu_torch.curves import point_kernels as pk
+
+            W, n = args[1].shape[2], args[1].shape[3] - (name == "padd_weight_sum")
+            row["launch"] = pk.split_launch_info(name, W, n)
         if name == "padd_mixed_select2" and msm_scan is not None:
             row["ms_msm_2e16"] = cuda_ms(lambda: kern(*msm_scan), 20)
             row["shape_msm_2e16"] = [list(t.shape) for t in msm_scan[1:]]

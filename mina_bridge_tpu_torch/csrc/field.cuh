@@ -349,6 +349,167 @@ FHD Fe csub32(const uint32_t x[8]) {
   return borrow ? join32(x) : join32(d);
 }
 
+// The helpers below (sub8, add8_to, mul_row9) keep inline PTX safe when
+// an operand is a compile-time constant (a prime's zero limbs, a zeroed
+// row): no read-write operand may start as a constant, since the compiler
+// may hand the same register to an input of equal value, and a write-only
+// operand is written after every input is read (mul_row9 works in
+// registers of its own).
+
+// a[0..7] -= b[0..7]; returns the borrow out (0 or 1). a must not be a
+// compile-time constant.
+FHD uint32_t sub8(uint32_t* a, const uint32_t* b) {
+  uint32_t borrow;
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "sub.cc.u32  %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]), "+r"(a[5]), "+r"(a[6]), "+r"(a[7]),
+        "=r"(borrow)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return borrow & 1;
+#else
+  uint64_t br = 0;
+  for (int j = 0; j < 8; j++) {
+    const uint64_t s = (uint64_t)a[j] - b[j] - br;
+    a[j] = (uint32_t)s;
+    br = (s >> 32) & 1;
+  }
+  borrow = (uint32_t)br;
+  return borrow;
+#endif
+}
+
+// a[0..7] += b[0..7]; returns the carry out. a must not be a compile-time
+// constant (add8's carry in is one).
+FHD uint32_t add8_to(uint32_t* a, const uint32_t* b) {
+  uint32_t carry;
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]), "+r"(a[5]), "+r"(a[6]), "+r"(a[7]),
+        "=r"(carry)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+#else
+  uint64_t c = 0;
+  for (int j = 0; j < 8; j++) {
+    const uint64_t s = (uint64_t)a[j] + b[j] + c;
+    a[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  carry = (uint32_t)c;
+#endif
+  return carry;
+}
+
+// t[0..8] = a[0..7] * b.
+FHD void mul_row9(uint32_t* t, const uint32_t* a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "{\n\t"
+      ".reg .u32 r<9>;\n\t"
+      "mul.lo.u32     r0, %9, %17;\n\t"
+      "mul.lo.u32     r1, %10, %17;\n\t"
+      "mul.lo.u32     r2, %11, %17;\n\t"
+      "mul.lo.u32     r3, %12, %17;\n\t"
+      "mul.lo.u32     r4, %13, %17;\n\t"
+      "mul.lo.u32     r5, %14, %17;\n\t"
+      "mul.lo.u32     r6, %15, %17;\n\t"
+      "mul.lo.u32     r7, %16, %17;\n\t"
+      "mul.hi.u32     r8, %16, %17;\n\t"
+      "mad.hi.cc.u32  r1, %9, %17, r1;\n\t"
+      "madc.hi.cc.u32 r2, %10, %17, r2;\n\t"
+      "madc.hi.cc.u32 r3, %11, %17, r3;\n\t"
+      "madc.hi.cc.u32 r4, %12, %17, r4;\n\t"
+      "madc.hi.cc.u32 r5, %13, %17, r5;\n\t"
+      "madc.hi.cc.u32 r6, %14, %17, r6;\n\t"
+      "madc.hi.cc.u32 r7, %15, %17, r7;\n\t"
+      "addc.u32       r8, r8, 0;\n\t"
+      "mov.u32 %0, r0;\n\t"
+      "mov.u32 %1, r1;\n\t"
+      "mov.u32 %2, r2;\n\t"
+      "mov.u32 %3, r3;\n\t"
+      "mov.u32 %4, r4;\n\t"
+      "mov.u32 %5, r5;\n\t"
+      "mov.u32 %6, r6;\n\t"
+      "mov.u32 %7, r7;\n\t"
+      "mov.u32 %8, r8;\n\t"
+      "}"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]), "=r"(t[6]), "=r"(t[7]),
+        "=r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(b));
+#else
+  uint64_t c = 0;
+  for (int j = 0; j < 8; j++) {
+    const uint64_t s = (uint64_t)a[j] * b + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  t[8] = (uint32_t)c;
+#endif
+}
+
+// a + b mod p on eight 32-bit limbs (the carry chains above): the value of
+// add<F> (a, b < p < 2^255, so a + b has no carry out of 2^256).
+template <int F>
+FHD Fe add32(const Fe& a, const Fe& b) {
+  uint32_t x[8], y[8];
+  split32(a, x);
+  split32(b, y);
+  add8_to(x, y);
+  return csub32<F>(x);
+}
+
+// a - b mod p on eight 32-bit limbs: the value of sub<F>.
+template <int F>
+FHD Fe sub32(const Fe& a, const Fe& b) {
+  uint32_t x[8], y[8], p[8];
+  split32(a, x);
+  split32(b, y);
+  split32(Params<F>::p(), p);
+  const uint32_t mask = 0u - sub8(x, y);
+#pragma unroll
+  for (int j = 0; j < 8; j++) p[j] &= mask;
+  add8_to(x, p);
+  return join32(x);
+}
+
+// k * a mod p for a < p and 1 <= k <= 64, without a Montgomery product:
+// t = k a < 2^262; with q = t >> 254 and p = 2^254 + c (c < 2^127 for both
+// Pasta primes), t - q p = (t mod 2^254) - q c lies in (-2^133, 2^254), so
+// one conditional addition of p makes it canonical. The same value as
+// mul(a, k R mod p) (e.g. mul_b3 at k = 15) in a fraction of the work.
+template <int F>
+FHD Fe mul_small(const Fe& a, uint32_t k) {
+  uint32_t x[8], p[8], t[9], qp[9];
+  split32(a, x);
+  split32(Params<F>::p(), p);
+  mul_row9(t, x, k);
+  const uint32_t q = (t[8] << 2) | (t[7] >> 30);
+  mul_row9(qp, p, q);
+  const uint32_t borrow = sub8(t, qp);
+  const uint32_t mask = 0u - ((t[8] - qp[8] - borrow) != 0);  // the difference is negative
+#pragma unroll
+  for (int j = 0; j < 8; j++) p[j] &= mask;
+  add8_to(t, p);
+  return join32(t);
+}
+
 // One Montgomery step: t += m * p with m = t[0] * (-p^-1 mod 2^32), so
 // t[0] becomes 0; then t /= 2^32.
 template <int F>

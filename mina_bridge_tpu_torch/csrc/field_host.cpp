@@ -61,6 +61,19 @@ int run(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n) {
     case 10:
       map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::group_mul_lanes<F, 8>(x, y); });
       return 0;
+    case 14:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::add32<F>(x, y); });
+      return 0;
+    case 15:
+      map2<F>(a, b, out, n, [](const fld::Fe& x, const fld::Fe& y) { return fld::sub32<F>(x, y); });
+      return 0;
+    case 11:
+    case 12:
+    case 13: {
+      const uint64_t k = op == 11 ? 15 : (op == 12 ? 45 : 64);
+      map2<F>(a, b, out, n, [k](const fld::Fe& x, const fld::Fe&) { return fld::mul_small<F>(x, k); });
+      return 0;
+    }
   }
   return 1;
 }
@@ -85,44 +98,33 @@ int points(int op, const int64_t* p, const int64_t* q, int64_t* out, int64_t n) 
   return 0;
 }
 
-// padd_weight_sum_kernel, its blocks and threads run in turn.
+// padd_weight_sum_kernel and padd_select_scan_kernel: the kernels'
+// programs (split::weight_grid, split::lane_scan) on split::SerialBlocks,
+// the blocks of a step in turn, each phase's tasks in turn; with reverse,
+// both last to first (the result must not depend on it). The weighting
+// runs on HOST_BLOCKS blocks, the repair window by window on its cluster.
+constexpr int HOST_BLOCKS = 3;
+
+constexpr size_t words_of(size_t bytes) { return (bytes + sizeof(uint64_t) - 1) / sizeof(uint64_t); }
+
 template <int F>
-void weight_sum(const int64_t* buckets, int64_t* out, int64_t W, int64_t D, int64_t K, int64_t C) {
-  const int64_t B = K / C, S = D / K;
-  std::vector<pts::Pt> tw(C), ma(C), ptw(B), pma(B);
-  for (int64_t w = 0; w < W; w++) {
-    for (int64_t b = 0; b < B; b++) {
-      for (int64_t j = 0; j < C; j++)
-        pts::weight_walk<F, MUL>(buckets, w * (D + 1) + (b * C + j) * S + 1, W * (D + 1), (int)S, tw[j], ma[j]);
-      for (int s = 1; s < C; s <<= 1)
-        for (int j = 0; j < C; j++)
-          pts::weight_merge<F, MUL>(tw.data(), ma.data(), j, (int)C / 2, s, (int)C, 2 * s < K);
-      ptw[b] = tw[0];
-      pma[b] = ma[0];
-    }
-    for (int s = 1; s < B; s <<= 1)
-      for (int j = 0; j < C; j++)
-        pts::weight_merge<F, MUL>(ptw.data(), pma.data(), j, (int)C / 2, s, (int)B, 2 * s < B);
-    pts::store_pt<F, MUL>(ptw[0], out, w, W);
-  }
+void weight_sum(const int64_t* buckets, int64_t* out, int64_t W, int64_t D, int64_t K, int64_t C, bool reverse) {
+  using namespace pts::split;
+  const size_t words = words_of(weight_bytes((int)(D / K), (int)C));
+  std::vector<uint64_t> smem(HOST_BLOCKS * words), roots(4 * W_ROOT_SLOTS * W * K);
+  const SerialBlocks grid{HOST_BLOCKS, 0, reverse, smem.data(), words};
+  weight_grid<F>(grid, buckets, out, roots.data(), (int)W, (int)D, (int)K, (int)C, NoStamp{});
 }
 
-// padd_select_scan_kernel, one window after another.
 template <int F>
-void lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, int64_t W, int64_t G) {
-  std::vector<pts::Pt> a(G);
-  std::vector<int32_t> f(G);
+void lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, int64_t W, int64_t G, bool reverse) {
+  using namespace pts::split;
+  const int CL = lane_cluster(G);
+  const size_t words = words_of(lane_bytes((int)(G / CL), false));
+  std::vector<uint64_t> smem(CL * words);
   for (int64_t w = 0; w < W; w++) {
-    for (int64_t i = 0; i < G; i++) {
-      a[i] = pts::load_pt<F, MUL>(carry, w * G + i, W * G);
-      f[i] = has_start[w * G + i] != 0;
-    }
-    for (int s = 1; s < G; s <<= 1)
-      for (int m = 0; m < G / (2 * s); m++) pts::lane_up<F, MUL>(a.data(), f.data(), m, s);
-    a[G - 1] = pts::identity<F>();
-    for (int s = (int)G / 2; s >= 1; s >>= 1)
-      for (int m = 0; m < G / (2 * s); m++) pts::lane_down<F, MUL>(a.data(), f.data(), m, s);
-    for (int64_t i = 0; i < G; i++) pts::store_pt<F, MUL>(a[i], out, w * G + i, W * G);
+    const SerialBlocks cl{CL, (int)(w * CL), reverse, smem.data(), words};
+    pts::split::lane_scan<F>(cl, carry, has_start, out, nullptr, (int)W, (int)G, NoStamp{});
   }
 }
 
@@ -163,7 +165,8 @@ void k7_blocks(const int64_t* p, const int64_t* q, const int32_t* keep_q, const 
 // op: 0 mul, 1 square (of a), 2 add, 3 sub, 4 multiply a by 15, 5 mul32
 // (the 32-bit-limb product), 6 mds_row: a b + b b + a a reduced once,
 // 7 sqr32 (of a), 8-10 the lane-group product of pow_chain.cuh over 2, 4
-// and 8 lanes, run lane by lane.
+// and 8 lanes, run lane by lane, 11-13 mul_small of a by 15, 45 and 64,
+// 14 add32, 15 sub32 (the 32-bit-limb carry-chain add and sub).
 extern "C" int mbt_host_binop(int field, int op, const int64_t* a, const int64_t* b, int64_t* out,
                               int64_t n) {
   return field == 0 ? run<0>(op, a, b, out, n) : run<1>(op, a, b, out, n);
@@ -179,11 +182,13 @@ extern "C" int mbt_host_points(int field, int op, const int64_t* p, const int64_
 }
 
 // The MSM phases of points.cu with their kernels' arguments (no scratch):
-// K3's bucket weighting, K3's fix-up (in place) and K5's lane repair.
+// K3's bucket weighting, K3's fix-up (in place) and K5's lane repair;
+// reverse: run each phase's tasks of the weighting and the repair last to
+// first.
 extern "C" int mbt_host_weight_sum(int field, const int64_t* buckets, int64_t* out, int64_t W, int64_t D, int64_t K,
-                                   int64_t C) {
-  if (W < 0 || !pow2(D) || !pow2(K) || !pow2(C) || K > D || C > K || K / C > C) return 1;
-  (field == 0 ? weight_sum<0> : weight_sum<1>)(buckets, out, W, D, K, C);
+                                   int64_t C, int reverse) {
+  if (W < 0 || !pow2(D) || !pow2(K) || !pow2(C) || K > D || C > K) return 1;
+  (field == 0 ? weight_sum<0> : weight_sum<1>)(buckets, out, W, D, K, C, reverse != 0);
   return 0;
 }
 
@@ -197,9 +202,9 @@ extern "C" int mbt_host_fixup(int field, int64_t* buckets, const int64_t* inflow
 }
 
 extern "C" int mbt_host_lane_scan(int field, const int64_t* carry, const int32_t* has_start, int64_t* out, int64_t W,
-                                  int64_t G) {
+                                  int64_t G, int reverse) {
   if (W < 0 || !pow2(G)) return 1;
-  (field == 0 ? lane_scan<0> : lane_scan<1>)(carry, has_start, out, W, G);
+  (field == 0 ? lane_scan<0> : lane_scan<1>)(carry, has_start, out, W, G, reverse != 0);
   return 0;
 }
 

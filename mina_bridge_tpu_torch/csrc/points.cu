@@ -17,7 +17,7 @@
 //      launch (the TPU ran one wave of the scan per call)
 //   K7 padd_mixed_select  (body padd_mixed_select_rows): the same with a
 //      3-row q whose Z row is exactly 0 (identity) or 1 (affine)
-// The formulas, and the per-thread steps of the three MSM phases, are in
+// The formulas, and the programs of the three MSM phases, are in
 // points.cuh.
 //
 // Layout: the rows layout of the JAX package, (nrows, 22, N) int64 limbs
@@ -36,18 +36,23 @@
 // K4, K6 and the MSM phases are chains, and a chain is bound by the
 // latency of its instructions, not by bytes: K4 walks 13 doublings per
 // Horner window on one lane; K6 walks T = N / G scan steps per lane with
-// few warps per SM; the weighting walks S buckets a thread and then a
-// log-depth tree; the lane repair runs 2 log2 G dependent levels of one
-// block. Each keeps its points as Montgomery words (in registers, or in
-// shared memory between a block's levels), runs in one launch instead of
-// one launch a step, and takes every product from one out-of-line
-// fld::mul32 body (the 32-bit carry-chain product, 1.43x faster than mul
-// as a lone chain): inlined, a scan step's ~20 products fill the
-// instruction cache. K3 padd and K5 padd_select take the same body. The
-// K6 scan loads a step's operands when the step starts: a step is ~20 us
-// of a warp's instructions, so the loads land long before use (a cp.async
-// prefetch of step t + 1 into shared memory ran a few per cent slower on
-// the H100; PERF.md).
+// few warps per SM; the weighting walks S buckets a chunk and then a
+// log-depth tree; the lane repair runs 2 log2 G dependent levels. Each
+// keeps its points as Montgomery words (in registers, or in shared memory
+// between levels) and runs in one launch instead of one launch a step. K4
+// and K6 take every product from one out-of-line fld::mul32 body (the
+// 32-bit carry-chain product, 1.43x faster than mul as a lone chain):
+// inlined, a scan step's ~20 products fill the instruction cache; K3 padd
+// and K5 padd_select take the same body. The weighting and the repair
+// split each point op over threads (points.cuh, split: two products deep,
+// six threads an add), so a level costs two products' latency and a wide
+// level fills the SMs; the weighting loads a block's buckets with
+// consecutive threads on consecutive buckets, and the repair spreads a
+// window over a cluster of up to 8 blocks (distributed shared memory for
+// the levels above a block). The K6 scan loads a step's operands when the
+// step starts: a step is ~20 us of a warp's instructions, so the loads
+// land long before use (a cp.async prefetch of step t + 1 into shared
+// memory ran a few per cent slower on the H100; PERF.md).
 #include <cuda_runtime.h>
 
 #include "points.cuh"
@@ -56,10 +61,10 @@ namespace {
 
 using fld::Fe;
 using pts::Pt;
+namespace split = pts::split;
 
 constexpr int THREADS = 128;
 constexpr int SCAN_THREADS = 64;
-constexpr int PHASE_THREADS = 256;  // the lane repair's blocks, the most the weighting's take
 constexpr size_t MAX_SHARED = 232448;  // bytes a block may take on an H100
 constexpr int MUL = fld::MUL32_CALL;
 // K7's lanes a block (scripts/torch_kernel_sweep.py took 32 of 16, 32 and
@@ -134,63 +139,17 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   }
 }
 
-// K3, the bucket weighting (points.cuh: weight_walk, weight_merge). Grid
-// (B, W): block (b, w) takes chunks b C .. (b + 1) C - 1 of window w, one a
-// thread (C = blockDim.x, K = B C chunks, S = D / K buckets a chunk), walks
-// them, and reduces its C chunks by the tree in shared memory. With B > 1
-// each block writes its root (tw, ma) to partials (W, 2 B) Montgomery
-// points; the last block of a window to finish (counters (W,) start at 0)
-// reads them back and runs the tree's last log2 B levels. The sums are the
-// same as one tree over all K chunks, so B does not change the result.
-//   buckets: (3, 22, W, D + 1), bucket 0 unread; out: (3, 22, W)
+// K3, the bucket weighting (points.cuh: split::weight_grid): a cooperative
+// launch, units of C chunks walked, then the tree's levels over all
+// blocks, each point op split over threads (split::THREADS a block).
+//   buckets: (3, 22, W, D + 1), bucket 0 unread; out: (3, 22, W);
+//   roots: W K chunk roots (6 slots each) of scratch
 template <int F>
-__global__ void __launch_bounds__(PHASE_THREADS)
-    padd_weight_sum_kernel(const int64_t* __restrict__ buckets, int64_t* __restrict__ out, Pt* partials,
-                           int* counters, int W, int D, int K) {
+__global__ void __launch_bounds__(split::THREADS, 2)
+    padd_weight_sum_kernel(const int64_t* __restrict__ buckets, int64_t* __restrict__ out, uint64_t* roots, int W,
+                           int D, int K, int C) {
   extern __shared__ uint64_t smem[];
-  __shared__ int is_last;
-  Pt* tw = reinterpret_cast<Pt*>(smem);
-  Pt* ma = tw + blockDim.x;
-  const int C = blockDim.x, B = gridDim.x, b = blockIdx.x, w = blockIdx.y, j = threadIdx.x;
-  const int S = D / K;
-  Pt tot, run;
-  pts::weight_walk<F, MUL>(buckets, (int64_t)w * (D + 1) + (int64_t)(b * C + j) * S + 1, (int64_t)W * (D + 1), S,
-                           tot, run);
-  tw[j] = tot;
-  ma[j] = run;
-  __syncthreads();
-  for (int s = 1; s < C; s <<= 1) {
-    pts::weight_merge<F, MUL>(tw, ma, j, C / 2, s, C, 2 * s < K);
-    __syncthreads();
-  }
-  if (B > 1) {
-    Pt* part = partials + (int64_t)w * 2 * B;
-    if (j == 0) {
-      part[b] = tw[0];
-      part[B + b] = ma[0];
-      __threadfence();
-      is_last = atomicAdd(&counters[w], 1) == B - 1;
-    }
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    if (j < B) {  // the blocks' roots, read past L1 (B <= C)
-      const auto* src_tw = reinterpret_cast<const unsigned long long*>(part + j);
-      const auto* src_ma = reinterpret_cast<const unsigned long long*>(part + B + j);
-      auto* dst_tw = reinterpret_cast<unsigned long long*>(tw + j);
-      auto* dst_ma = reinterpret_cast<unsigned long long*>(ma + j);
-      for (int k = 0; k < (int)(sizeof(Pt) / 8); k++) {
-        dst_tw[k] = __ldcg(src_tw + k);
-        dst_ma[k] = __ldcg(src_ma + k);
-      }
-    }
-    __syncthreads();
-    for (int s = 1; s < B; s <<= 1) {
-      pts::weight_merge<F, MUL>(tw, ma, j, C / 2, s, B, 2 * s < B);
-      __syncthreads();
-    }
-  }
-  if (j == 0) pts::store_pt<F, MUL>(tw[0], out, w, W);
+  split::weight_grid<F>(split::GridBlock{smem}, buckets, out, roots, W, D, K, C, split::NoStamp{});
 }
 
 // K3, the fix-up (points.cuh: fixup_lane): one thread per lane (w, g) of
@@ -204,44 +163,17 @@ __global__ void padd_fixup_kernel(int64_t* __restrict__ buckets, const int64_t* 
   pts::fixup_lane<F, MUL>(buckets, inflow, dig, n / G, n % G, W, G, T, NB);
 }
 
-// K5, the lane repair (points.cuh: lane_up, lane_down): one block per
-// window runs the in-place Blelloch scan over its G lanes, a level between
-// barriers. The lanes' points sit in shared memory, or in scratch (W, G)
-// in device memory when scratch is given (G too large for shared memory);
-// the flags always in shared memory.
+// K5, the lane repair (points.cuh: split::lane_scan): a cluster of CL
+// blocks a window (grid W CL), each point op split over threads
+// (split::THREADS a block), block 0 running the levels above a block on
+// the blocks' roots over distributed shared memory.
 //   carry: (3, 22, W, G); has_start: (W, G) int32; out: (3, 22, W, G)
 template <int F>
-__global__ void __launch_bounds__(PHASE_THREADS)
+__global__ void __launch_bounds__(split::THREADS, 2)
     padd_select_scan_kernel(const int64_t* __restrict__ carry, const int32_t* __restrict__ has_start,
-                            int64_t* __restrict__ out, Pt* scratch, int W, int G) {
+                            int64_t* __restrict__ out, uint64_t* scratch, int W, int G, int CL) {
   extern __shared__ uint64_t smem[];
-  const int w = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  Pt* a;
-  int32_t* f;
-  if (scratch) {
-    a = scratch + (int64_t)w * G;
-    f = reinterpret_cast<int32_t*>(smem);
-  } else {
-    a = reinterpret_cast<Pt*>(smem);
-    f = reinterpret_cast<int32_t*>(a + G);
-  }
-  const int64_t lanes = (int64_t)W * G, base = (int64_t)w * G;
-  for (int i = t; i < G; i += nt) {
-    a[i] = pts::load_pt<F, MUL>(carry, base + i, lanes);
-    f[i] = has_start[base + i] != 0;
-  }
-  __syncthreads();
-  for (int s = 1; s < G; s <<= 1) {
-    for (int m = t; m < G / (2 * s); m += nt) pts::lane_up<F, MUL>(a, f, m, s);
-    __syncthreads();
-  }
-  if (t == 0) a[G - 1] = pts::identity<F>();
-  __syncthreads();
-  for (int s = G / 2; s >= 1; s >>= 1) {
-    for (int m = t; m < G / (2 * s); m += nt) pts::lane_down<F, MUL>(a, f, m, s);
-    __syncthreads();
-  }
-  for (int i = t; i < G; i += nt) pts::store_pt<F, MUL>(a[i], out, base + i, lanes);
+  split::lane_scan<F>(split::ClusterBlock{smem, CL}, carry, has_start, out, scratch, W, G, split::NoStamp{});
 }
 
 // K7 (points.cuh: k7::block): K7_LANES lanes a block, six threads a lane.
@@ -315,28 +247,73 @@ extern "C" int mbt_padd_mixed_select2_scan(int field, const int64_t* carry, cons
 
 static bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
 
-// K3's bucket weighting. buckets: (3, 22, W, D + 1); out: (3, 22, W);
-// partials: W * 2 * (K / C) Montgomery points of scratch; counters: (W,)
-// int32, zero. D, K and C powers of two with C <= K <= D, C <= 256 and
-// K / C <= C.
-extern "C" int mbt_padd_weight_sum(int field, const int64_t* buckets, int64_t* out, void* partials, int* counters,
-                                   int64_t W, int64_t D, int64_t K, int64_t C, void* stream) {
-  if (W < 0 || !pow2(D) || !pow2(K) || !pow2(C) || K > D || C > K || C > PHASE_THREADS ||
-      K / C > C || W > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (W > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const size_t smem = 2 * C * sizeof(Pt);
-    const dim3 grid((unsigned)(K / C), (unsigned)W);
-    Pt* part = (Pt*)partials;
-    if (field == 0) {
-      cudaFuncSetAttribute(padd_weight_sum_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      padd_weight_sum_kernel<0><<<grid, (unsigned)C, smem, s>>>(buckets, out, part, counters, (int)W, (int)D, (int)K);
-    } else {
-      cudaFuncSetAttribute(padd_weight_sum_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      padd_weight_sum_kernel<1><<<grid, (unsigned)C, smem, s>>>(buckets, out, part, counters, (int)W, (int)D, (int)K);
-    }
+// K3's bucket weighting: its launch's shared memory, or 0 if the
+// arguments are refused. D, K and C powers of two with C <= K <= D, at
+// most 65535 windows, and a unit (C chunks of S = D / K buckets) in shared
+// memory.
+static size_t weight_sum_smem(int64_t W, int64_t D, int64_t K, int64_t C) {
+  if (W < 0 || W > 65535 || !pow2(D) || !pow2(K) || !pow2(C) || K > D || C > K) return 0;
+  const size_t smem = split::weight_bytes((int)(D / K), (int)C);
+  return smem > MAX_SHARED ? 0 : smem;
+}
+
+// The launch setup of kernel k (0, 1: the weighting on field 0, 1; 2, 3:
+// the repair) on the current device for smem bytes of shared memory: the
+// most shared memory allowed so far (cudaFuncSetAttribute, raised only
+// when a launch needs more) and the blocks the card holds at once at the
+// last size asked. Kept for the process, so that a launch at the size of
+// the one before makes no attribute or occupancy query.
+struct LaunchSetup {
+  size_t allowed, smem;
+  int64_t held;
+};
+
+constexpr int SETUP_DEVICES = 16;
+
+static LaunchSetup launch_setup(int k, const void* fn, size_t smem) {
+  static LaunchSetup cache[4][SETUP_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  LaunchSetup none = {};
+  LaunchSetup& c = dev < SETUP_DEVICES ? cache[k][dev] : none;
+  if (c.smem == smem && c.allowed >= smem) return c;
+  if (c.allowed < smem) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    c.allowed = smem;
   }
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, split::THREADS, smem);
+  c.smem = smem;
+  c.held = (int64_t)sms * per_sm;
+  return c;
+}
+
+// The weighting's blocks: as many as the card holds at once (its
+// cooperative launch needs them all resident), at most one a chunk.
+static unsigned weight_sum_blocks(int64_t units, const LaunchSetup& setup) {
+  return (unsigned)(units < setup.held ? units : setup.held);
+}
+
+template <int F>
+static void launch_weight_sum(const int64_t* buckets, int64_t* out, void* roots, int64_t W, int64_t D, int64_t K,
+                              int64_t C, size_t smem, cudaStream_t s) {
+  const void* fn = (const void*)padd_weight_sum_kernel<F>;
+  const LaunchSetup setup = launch_setup(F, fn, smem);
+  int w = (int)W, d = (int)D, k = (int)K, c = (int)C;
+  void* args[] = {(void*)&buckets, (void*)&out, (void*)&roots, &w, &d, &k, &c};
+  cudaLaunchCooperativeKernel(fn, weight_sum_blocks(W * K, setup), split::THREADS, args, smem, s);
+}
+
+// K3's bucket weighting. buckets: (3, 22, W, D + 1); out: (3, 22, W);
+// roots: W K chunk roots (W * 2 * K Montgomery points) of scratch.
+extern "C" int mbt_padd_weight_sum(int field, const int64_t* buckets, int64_t* out, void* roots, int64_t W, int64_t D,
+                                   int64_t K, int64_t C, void* stream) {
+  const size_t smem = weight_sum_smem(W, D, K, C);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (W > 0)
+    (field == 0 ? launch_weight_sum<0> : launch_weight_sum<1>)(buckets, out, roots, W, D, K, C, smem,
+                                                               (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -356,24 +333,85 @@ extern "C" int mbt_padd_fixup(int field, int64_t* buckets, const int64_t* inflow
   return (int)cudaGetLastError();
 }
 
+// K5's lane repair: its launch's shared memory (the lanes' points unless
+// they are in scratch, the round scratch, block 0's top items, the flags),
+// or 0 if the arguments are refused.
+static size_t lane_scan_smem(int64_t W, int64_t G, bool scratch) {
+  if (W < 0 || !pow2(G) || W * split::lane_cluster(G) > 0x7fffffff) return 0;
+  const int Gc = (int)(G / split::lane_cluster(G));
+  const size_t smem = split::lane_bytes(Gc, scratch);
+  return smem > MAX_SHARED ? 0 : smem;
+}
+
+// A cluster launch of the lane repair: CL blocks a window.
+static cudaLaunchConfig_t lane_scan_config(int64_t W, int64_t G, size_t smem, cudaStream_t s,
+                                           cudaLaunchAttribute* attr) {
+  const int CL = split::lane_cluster(G);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(W * CL));
+  cfg.blockDim = dim3(split::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int F>
+static void launch_lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, void* scratch, int64_t W,
+                             int64_t G, size_t smem, cudaStream_t s) {
+  launch_setup(2 + F, (const void*)padd_select_scan_kernel<F>, smem);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = lane_scan_config(W, G, smem, s, &attr);
+  cudaLaunchKernelEx(&cfg, padd_select_scan_kernel<F>, carry, has_start, out, (uint64_t*)scratch, (int)W, (int)G,
+                     split::lane_cluster(G));
+}
+
 // K5's lane repair. carry, out: (3, 22, W, G); has_start: (W, G) int32;
 // G a power of two. scratch: null (points in shared memory) or W * G
 // Montgomery points.
 extern "C" int mbt_padd_select_scan(int field, const int64_t* carry, const int32_t* has_start, int64_t* out,
                                     void* scratch, int64_t W, int64_t G, void* stream) {
-  const size_t smem = (size_t)G * (sizeof(int32_t) + (scratch ? 0 : sizeof(Pt)));
-  if (W < 0 || W > 0x7fffffff || !pow2(G) || smem > MAX_SHARED) return (int)cudaErrorInvalidValue;
-  if (W > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    Pt* sc = (Pt*)scratch;
-    if (field == 0) {
-      cudaFuncSetAttribute(padd_select_scan_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      padd_select_scan_kernel<0><<<(unsigned)W, PHASE_THREADS, smem, s>>>(carry, has_start, out, sc, (int)W, (int)G);
-    } else {
-      cudaFuncSetAttribute(padd_select_scan_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      padd_select_scan_kernel<1><<<(unsigned)W, PHASE_THREADS, smem, s>>>(carry, has_start, out, sc, (int)W, (int)G);
-    }
+  const size_t smem = lane_scan_smem(W, G, scratch != nullptr);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (W > 0)
+    (field == 0 ? launch_lane_scan<0> : launch_lane_scan<1>)(carry, has_start, out, scratch, W, G, smem,
+                                                             (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// What a launch of the weighting (kind 0: n = D, K, C) or the lane repair
+// (kind 1: n = G, K = 1 if its lanes are in scratch) gets on this card:
+// info[0..5] = the weighting's units (all windows) or the repair's blocks
+// a window (its cluster), threads a block, shared memory bytes a block,
+// registers a thread, blocks an SM can hold, and the weighting's blocks in
+// all or the clusters the card can hold at once (the repair). Returns a
+// CUDA error, or cudaErrorInvalidValue for refused arguments.
+extern "C" int mbt_split_launch_info(int kind, int64_t W, int64_t n, int64_t K, int64_t C, int64_t* info) {
+  const bool lane = kind == 1;
+  const size_t smem = lane ? lane_scan_smem(W, n, K != 0) : weight_sum_smem(W, n, K, C);
+  if (smem == 0 || W < 1) return (int)cudaErrorInvalidValue;
+  const void* fn = lane ? (const void*)padd_select_scan_kernel<0> : (const void*)padd_weight_sum_kernel<0>;
+  const LaunchSetup setup = launch_setup(lane ? 2 : 0, fn, smem);
+  cudaFuncAttributes fa;
+  int per_sm = 0, clusters = 0;
+  cudaFuncGetAttributes(&fa, fn);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, split::THREADS, smem);
+  if (lane) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = lane_scan_config(W, n, smem, nullptr, &attr);
+    cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
   }
+  info[5] = lane ? clusters : weight_sum_blocks(W * K, setup);
+  info[0] = lane ? split::lane_cluster(n) : split::weight_units((int)W, (int)K, (int)C, (int)info[5]);
+  info[1] = split::THREADS;
+  info[2] = (int64_t)smem;
+  info[3] = fa.numRegs;
+  info[4] = per_sm;
   return (int)cudaGetLastError();
 }
 

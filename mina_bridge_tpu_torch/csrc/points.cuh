@@ -9,20 +9,28 @@
 // way. K7 runs the mixed add as a program of field operations (k7 below),
 // with one inlined mul32 for all of its products.
 //
-// Below the formulas are the per-thread steps of the MSM's three
-// one-launch phases (the bucket weighting and the fix-up of K3, the lane
-// scan of K5). points.cu runs them in its kernels between block barriers;
-// field_host.cpp runs the same steps in loops, so the CPU tests check
-// their index arithmetic.
+// Below the formulas are the MSM's three one-launch phases: the bucket
+// weighting of K3 and the lane scan of K5 as programs of split point
+// operations (namespace split: each add and doubling over several
+// threads, phases between block barriers), and K3's fix-up as one thread
+// a lane. points.cu runs them in its kernels; field_host.cpp runs the same
+// code with every phase's tasks in turn (split::Serial), so the CPU tests
+// check their index arithmetic and that no phase's tasks race.
 #pragma once
 #include <stddef.h>
 
 #include "field.cuh"
 
 #if defined(__CUDACC__)
+#include <cooperative_groups.h>
+#endif
+
+#if defined(__CUDACC__)
 #define PHD __host__ __device__
+#define PHD_CALL __host__ __device__ __noinline__
 #else
 #define PHD inline
+#define PHD_CALL inline
 #endif
 
 namespace pts {
@@ -165,6 +173,282 @@ PHD Pt identity() {
 }
 
 // ---------------------------------------------------------------------------
+// Split point operations: the MSM's bucket weighting (K3) and lane repair
+// (K5) run every complete add and doubling over several threads.
+//
+// Points and temporaries sit in shared memory as Montgomery words (Vec).
+// A round of operations (Op: p + q or 2 p, each on points of a Vec) runs
+// in three phases with a block barrier after each:
+//   1: the operation's independent products, one thread a (product, op):
+//      the add's six (RCB16 Alg 7: x x', y y', z z' and the three cross
+//      sums' products), the doubling's four (y^2, y z, z^2, x y);
+//   2: the second level's products, each thread first forming its two
+//      operands from phase 1's results with additions and small multiples
+//      (15 = b3, 3, 8 and 45 by fld::mul_small, no Montgomery product):
+//      six for the add, four for the doubling;
+//   3: the result's three coordinates (sums of phase 2's products), handed
+//      to the round's caller, one thread a coordinate.
+// So an add is two products deep, not the ~14 of one thread's padd_f, and
+// a round of m operations keeps 6 m threads busy. The values are padd_f's
+// and pdouble_f's field elements, so the points are the same
+// representatives the one-thread formulas (and the plain versions) give.
+// Every task of a phase writes slots that no other task of the phase
+// reads or writes, so the order of tasks within a phase does not matter
+// (the host build runs them in either order). One loop body holds the
+// products of phases 1 and 2 (one inlined mul32), so all of them share
+// one copy of the code.
+// ---------------------------------------------------------------------------
+namespace split {
+
+// Items with slots of one field element each: word w of slot k of item i
+// at s[(4 k + w) n + i], so a warp's threads, on consecutive items, touch
+// consecutive words.
+struct Vec {
+  uint64_t* s;
+  int n;
+  PHD Fe get(int k, int i) const {
+    const uint64_t* b = s + (int64_t)4 * k * n + i;
+    return {{b[0], b[n], b[2 * n], b[3 * n]}};
+  }
+  PHD void put(int k, int i, const Fe& v) const {
+    uint64_t* b = s + (int64_t)4 * k * n + i;
+    b[0] = v.w[0];
+    b[n] = v.w[1];
+    b[2 * n] = v.w[2];
+    b[3 * n] = v.w[3];
+  }
+};
+
+constexpr int PT_SLOTS = 3;   // a point: x, y, z
+constexpr int TMP_SLOTS = 12;  // an op's temporaries: phase 1's six products, phase 2's six
+constexpr int JOBS = 64;       // ops a round holds at once (tmp items)
+constexpr int THREADS = 6 * JOBS;  // a block: one thread a (product, op)
+
+// A point: item i of v, its coordinates in slots k, k + 1, k + 2.
+struct PRef {
+  Vec v;
+  int k, i;
+  PHD Fe get(int c) const { return v.get(k + c, i); }
+  PHD void put(int c, const Fe& x) const { v.put(k + c, i, x); }
+};
+
+enum Kind : int { ADD, DBL };
+
+// out = p + q (ADD, padd_f's order of operands) or 2 p (DBL); a dead op
+// (live false) computes nothing and its round's caller gets no value.
+struct Op {
+  int kind;
+  PRef p, q;
+  bool live;
+};
+
+// Phase 1: product k's operands from the op's points.
+template <int F>
+PHD void operands1(int kind, const PRef& p, const PRef& q, int k, Fe& a, Fe& b) {
+  if (kind == DBL) {
+    a = p.get(k == 3 ? 0 : (k == 2 ? 2 : 1));  // y y, y z, z z, x y
+    b = p.get(k == 0 || k == 3 ? 1 : 2);
+  } else if (k < 3) {  // x x', y y', z z'
+    a = p.get(k);
+    b = q.get(k);
+  } else {  // (x + y)(x' + y'), (y + z)(y' + z'), (x + z)(x' + z')
+    const int c0 = k == 4 ? 1 : 0, c1 = k == 3 ? 1 : 2;
+    a = fld::add32<F>(p.get(c0), p.get(c1));
+    b = fld::add32<F>(q.get(c0), q.get(c1));
+  }
+}
+
+// Phase 2: product k's operands from phase 1's products (tmp slots 0-5 of
+// job j), in padd_f's and pdouble_f's names.
+template <int F>
+PHD void operands2(int kind, const Vec& tmp, int j, int k, Fe& a, Fe& b) {
+  using fld::mul_small;
+  auto add = [](const Fe& x, const Fe& y) { return fld::add32<F>(x, y); };
+  auto sub = [](const Fe& x, const Fe& y) { return fld::sub32<F>(x, y); };
+  if (kind == DBL) {  // tmp: y^2, y z, z^2, x y
+    const Fe y2 = tmp.get(0, j);
+    if (k < 2) {  // x3 = (b3 z^2) (8 y^2), z3 = (y z) (8 y^2)
+      a = k == 0 ? mul_small<F>(tmp.get(2, j), 15) : tmp.get(1, j);
+      b = mul_small<F>(y2, 8);
+    } else {  // t0 = y^2 - 3 b3 z^2; y3 = t0 (y^2 + b3 z^2); x3 = t0 (x y)
+      a = sub(y2, mul_small<F>(tmp.get(2, j), 45));
+      b = k == 2 ? add(y2, mul_small<F>(tmp.get(2, j), 15)) : tmp.get(3, j);
+    }
+    return;
+  }
+  // tmp: t0 = x x', t1 = y y', t2 = z z', then the three cross products:
+  //   t3 = xy' - t0 - t1, t4 = yz' - t1 - t2, y3 = b3 (xz' - t0 - t2),
+  //   3 t0, t1 - b3 t2, z3 = t1 + b3 t2
+  const Fe t0 = tmp.get(0, j), t1 = tmp.get(1, j), t2 = tmp.get(2, j);
+  switch (k) {
+    case 0:  // x3 = t4 y3
+      a = sub(tmp.get(4, j), add(t1, t2));
+      b = mul_small<F>(sub(tmp.get(5, j), add(t0, t2)), 15);
+      break;
+    case 1:  // t2 = t3 (t1 - b3 t2)
+      a = sub(tmp.get(3, j), add(t0, t1));
+      b = sub(t1, mul_small<F>(t2, 15));
+      break;
+    case 2:  // y3 = y3 (3 t0)
+      a = mul_small<F>(sub(tmp.get(5, j), add(t0, t2)), 15);
+      b = mul_small<F>(t0, 3);
+      break;
+    case 3:  // t1 = (t1 - b3 t2) z3
+      a = sub(t1, mul_small<F>(t2, 15));
+      b = add(t1, mul_small<F>(t2, 15));
+      break;
+    case 4:  // t0 = (3 t0) t3
+      a = mul_small<F>(t0, 3);
+      b = sub(tmp.get(3, j), add(t0, t1));
+      break;
+    default:  // z3 = z3 t4
+      a = add(t1, mul_small<F>(t2, 15));
+      b = sub(tmp.get(4, j), add(t1, t2));
+  }
+}
+
+// Phase 1 or 2's product k of an op (phase 1 from its points p, q; phase
+// 2 from tmp slots 0-5 of job j) into tmp slot 6 ph + k. Out of line: a
+// kernel holds one copy of the operand forms and of the product.
+template <int F>
+PHD_CALL void product_task(int ph, int kind, int k, PRef p, PRef q, Vec tmp, int j) {
+  Fe a, b;
+  if (ph == 0)
+    operands1<F>(kind, p, q, k, a, b);
+  else
+    operands2<F>(kind, tmp, j, k, a, b);
+  tmp.put(6 * ph + k, j, fld::mul32<F>(a, b));
+}
+
+// Phase 3: coordinate c of the result from phase 2's products (slots 6-11).
+template <int F>
+PHD Fe result(int kind, const Vec& tmp, int j, int c) {
+  if (kind == DBL) {  // x3 = 2 t0 x y, y3 = b3 z^2 8 y^2 + t0 (...), z3 = y z 8 y^2
+    if (c == 0) return fld::add32<F>(tmp.get(9, j), tmp.get(9, j));
+    if (c == 1) return fld::add32<F>(tmp.get(6, j), tmp.get(8, j));
+    return tmp.get(7, j);
+  }
+  if (c == 0) return fld::sub32<F>(tmp.get(7, j), tmp.get(6, j));  // t3 t1 - t4 y3
+  return fld::add32<F>(tmp.get(7 + 2 * c, j), tmp.get(6 + 2 * c, j));  // t1 z3 + y3 t0, z3 t4 + t0 t3
+}
+
+// How a block's threads take a phase's tasks: on the card thread tid of nt
+// takes tasks tid, tid + nt, ...; sync() is the block barrier and any()
+// __syncthreads_or. The host build's Serial runs every task of a phase in
+// turn (or last to first) and needs no barrier.
+struct Threads {
+  int tid, nt;
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+  template <class Fn>
+  PHD void tasks(int n, Fn fn) const {
+#pragma unroll 1
+    for (int t = tid; t < n; t += nt) fn(t);
+  }
+  PHD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+  template <class Fn>
+  PHD bool any(int n, Fn pred) const {
+    int v = 0;
+#pragma unroll 1
+    for (int t = tid; t < n; t += nt) v |= pred(t) ? 1 : 0;
+#ifdef __CUDA_ARCH__
+    return __syncthreads_or(v) != 0;
+#else
+    return v != 0;
+#endif
+  }
+};
+
+struct Serial {
+  bool reverse;
+  template <class Fn>
+  PHD void tasks(int n, Fn fn) const {
+    for (int t = 0; t < n; t++) fn(reverse ? n - 1 - t : t);
+  }
+  PHD void sync() const {}
+  template <class Fn>
+  PHD bool any(int n, Fn pred) const {
+    bool v = false;
+    for (int t = 0; t < n; t++) v |= pred(reverse ? n - 1 - t : t);
+    return v;
+  }
+};
+
+// A block's scratch for rounds: tmp (JOBS items of TMP_SLOTS) and the
+// jobs' states (0 dead, else 1 + the op's kind).
+struct Work {
+  Vec tmp;
+  int* live;
+};
+
+// Ops 0..n-1 (op(o) -> Op), JOBS at a time: three phases each; then
+// done(o, c, v) for each op and coordinate (v the result's coordinate c
+// where the op is live). FLAGGED: ops may be dead (the lane repair's
+// selects); a pass before phase 1 keeps their states and skips phases 1
+// and 2 when no op of the batch is live, and op is read only there and in
+// phase 1, so done may write what op reads (the op's points, its flags).
+// Otherwise every op is live, there is no such pass, and op must not read
+// what done writes within a round (the weighting's ops).
+template <int F, bool FLAGGED, class E, class OpFn, class Done>
+PHD void run(const E& ex, const Work& wk, int n, OpFn op, Done done) {
+  for (int base = 0; base < n; base += JOBS) {
+    const int m = n - base < JOBS ? n - base : JOBS;
+    auto kind_of = [&](int j) { return FLAGGED ? wk.live[j] - 1 : op(base + j).kind; };
+    bool any = true;
+    if (FLAGGED)
+      any = ex.any(m, [&](int j) {
+        const Op o = op(base + j);
+        return (wk.live[j] = o.live ? 1 + o.kind : 0) != 0;
+      });
+    if (any) {
+#pragma unroll 1
+      for (int ph = 0; ph < 2; ph++) {
+        ex.tasks(6 * m, [&](int t) {
+          const int j = t % m, k = t / m, kind = kind_of(j);
+          if (kind < 0 || (kind == DBL && k >= 4)) return;
+          if (ph == 0) {
+            const Op o = op(base + j);
+            product_task<F>(0, kind, k, o.p, o.q, wk.tmp, j);
+          } else {
+            product_task<F>(1, kind, k, PRef{}, PRef{}, wk.tmp, j);
+          }
+        });
+        ex.sync();
+      }
+    }
+    ex.tasks(3 * m, [&](int t) {
+      const int j = t % m, c = t / m, kind = kind_of(j);
+      done(base + j, c, kind >= 0 ? result<F>(kind, wk.tmp, j, c) : fld::zero<F>());
+    });
+    ex.sync();
+  }
+}
+
+// 22 limbs (stride apart) -> Montgomery form: fld::from_limbs on the
+// out-of-line mul32, skipping the product of the part above 2^256 where it
+// is 0 (canonical limbs, as every kernel writes).
+template <int F>
+PHD Fe to_mont(const int64_t* x, int64_t stride) {
+  Fe lo, hi;
+  fld::limbs_to_words(x, stride, lo, hi);
+  const Fe r = fld::mul32_call<F>(lo, fld::Params<F>::r2());
+  return fld::is_zero<F>(hi) ? r : fld::add32<F>(r, fld::mul32_call<F>(hi, fld::Params<F>::r3()));
+}
+
+template <int F>
+PHD Fe identity_coord(int c) {
+  return c == 1 ? fld::one<F>() : fld::zero<F>();
+}
+
+// ---------------------------------------------------------------------------
 // K3, the bucket weighting: total_w = sum_{d=1}^{D} d B_{w,d}.
 //
 // A window's D buckets are cut into K chunks of S = D / K; chunk j holds
@@ -174,37 +458,136 @@ PHD Pt identity() {
 // groups of width M combine as tw = (tw_l + tw_r) + ma_r and
 // ma = 2 (ma_l + ma_r), so a binary tree over the K chunks ends in
 // sum d B_d at the root (o = 0).
+//
+// First every chunk walks its buckets top down, run += B; tot += run (so
+// tot = sum (d - o) B_d), and doubles run log2 S times (ma = S A): a unit
+// of at most C chunks a block, their state in shared memory (item j of st:
+// chunk j's ma in slots 0-2, its tw in 3-5, its S buckets from slot 6), round k
+// running chunk j's k-th run add beside its (k-1)-th tot add, then the
+// doublings beside the last tot add. The chunks' (ma, tw) then go to a Vec
+// of all windows' chunk roots (item w K + j), and the tree's levels run on
+// it, two rounds a level: tw_l + tw_r beside ma_l + ma_r, then + ma_r
+// beside the doubling.
 // ---------------------------------------------------------------------------
+constexpr int W_MA = 0, W_TW = 3, W_BUCKETS = 6, W_ROOT_SLOTS = 6;
+PHD constexpr int weight_slots(int S) { return W_BUCKETS + PT_SLOTS * S; }
 
-// One chunk: walk buckets lane0 + S - 1 down to lane0 of a (3, 22, nlanes)
-// batch with run += B; tot += run (so tot = sum (d - o) B_d), then double
-// run log2 S times (ma = S A).
-template <int F, int P>
-PHD void weight_walk(const int64_t* b, int64_t lane0, int64_t nlanes, int S, Pt& tot, Pt& run) {
-  run = identity<F>();
-  tot = identity<F>();
-  for (int s = S - 1; s >= 0; s--) {
-    run = padd_f<F, P>(run, load_pt<F, P>(b, lane0 + s, nlanes));
-    tot = padd_f<F, P>(tot, run);
+// Load the n chunks of a unit, global chunks g0 .. g0 + n - 1 (chunk g is
+// window g / K's chunk g % K), as Montgomery words, consecutive threads on
+// consecutive buckets; every chunk's ma and tw start at the identity.
+// buckets: (3, 22, W (D + 1)) lanes, bucket 0 of a window unread.
+template <int F, class E>
+PHD void weight_load(const E& ex, const Vec& st, int n, const int64_t* buckets, int g0, int W, int D, int K) {
+  const int S = D / K, nS = n * S;
+  const int64_t nb = (int64_t)W * (D + 1), cs = (int64_t)fld::REP_LIMBS * nb;
+  ex.tasks(3 * nS + 6 * n, [&](int t) {
+    if (t < 3 * nS) {
+      const int i = t % nS, c = t / nS, j = i / S, g = g0 + j;
+      const int64_t lane = (int64_t)(g / K) * (D + 1) + (int64_t)(g % K) * S + 1 + i % S;
+      st.put(W_BUCKETS + PT_SLOTS * (i % S) + c, j, to_mont<F>(buckets + c * cs + lane, nb));
+    } else {
+      const int u = t - 3 * nS, j = u % n, k = u / n;  // slots 0-5: ma, tw
+      st.put(k, j, identity_coord<F>(k % 3));
+    }
+  });
+  ex.sync();
+}
+
+// The walks of st's first C chunks over their S buckets (log2 S
+// doublings at the end).
+template <int F, class E>
+PHD void weight_walk(const E& ex, const Work& wk, const Vec& st, int C, int S) {
+  int nd = 0;
+  while ((1 << nd) < S) nd++;
+  const int rounds = S + (nd > 1 ? nd : 1);
+#pragma unroll 1
+  for (int k = 0; k < rounds; k++) {
+    // ops o < C: chunk o's tot add where this round has one (it reads run
+    // before the run add or doubling writes it, also where the ops run in
+    // several batches); the rest: its run add (rounds 0..S-1), then its
+    // doublings (rounds S..S+nd-1)
+    const bool tot = k >= 1 && k <= S, more = k < S + nd;
+    run<F, false>(
+        ex, wk, (tot && more ? 2 : 1) * C,
+        [&](int o) {
+          const int j = o % C;
+          const PRef ma{st, W_MA, j}, tw{st, W_TW, j};
+          if (tot && o < C) return Op{ADD, tw, ma, true};
+          if (k < S) return Op{ADD, ma, PRef{st, W_BUCKETS + PT_SLOTS * (S - 1 - k), j}, true};
+          return Op{DBL, ma, ma, true};
+        },
+        [&](int o, int c, const Fe& v) { st.put((tot && o < C ? W_TW : W_MA) + c, o % C, v); });
   }
-  for (int k = S; k > 1; k >>= 1) run = pdouble_f<F, P>(run);
 }
 
-// Thread j's part of one tree level over n entries (groups of s leaves at
-// tw[i s], ma[i s]) for a block of 2 half threads: thread i < half combines
-// merge i's tw, thread half + i its ma, which only a level below the root
-// needs (with_ma). The two roles sit in different warps, so no warp runs
-// both.
-template <int F, int P>
-PHD void weight_merge(Pt* tw, Pt* ma, int j, int half, int s, int n, bool with_ma) {
-  const bool second = j >= half;
-  const int l = (second ? j - half : j) * 2 * s, r = l + s;
-  if (r >= n) return;
-  if (!second)
-    tw[l] = padd_f<F, P>(padd_f<F, P>(tw[l], tw[r]), ma[r]);
-  else if (with_ma)
-    ma[l] = pdouble_f<F, P>(padd_f<F, P>(ma[l], ma[r]));
+// Merges [g0, g1) of one tree level over groups of s chunks, in the Vec
+// tr of chunk roots (items w K + j): merge g of the W K / (2 s) is window
+// w = g / M's (M = K / (2 s)) merge of items l = w K + (g % M) 2 s and
+// r = l + s; ma is kept below the root (2 s < K).
+template <int F, class E>
+PHD void weight_level(const E& ex, const Work& wk, const Vec& tr, int K, int s, int g0, int g1) {
+  const int M = K / (2 * s), cnt = g1 - g0;
+  if (cnt <= 0) return;
+  const bool with_ma = 2 * s < K;
+  auto left = [&](int o) {
+    const int g = g0 + o % cnt;
+    return (g / M) * K + (g % M) * 2 * s;
+  };
+#pragma unroll 1
+  for (int half = 0; half < 2; half++)
+    run<F, false>(
+        ex, wk, with_ma ? 2 * cnt : cnt,
+        [&](int o) {
+          const int l = left(o), r = l + s;
+          if (o < cnt) return Op{ADD, PRef{tr, W_TW, l}, PRef{tr, half ? W_MA : W_TW, r}, true};
+          if (half == 0) return Op{ADD, PRef{tr, W_MA, l}, PRef{tr, W_MA, r}, true};
+          return Op{DBL, PRef{tr, W_MA, l}, PRef{tr, W_MA, l}, true};
+        },
+        [&](int o, int c, const Fe& v) { tr.put((o < cnt ? W_TW : W_MA) + c, left(o), v); });
 }
+
+// Units: the W K chunks of all windows in nu units of cu = ceil(W K / nu)
+// chunks (the last ones short or empty), nu the larger of the grid's
+// blocks and ceil(W K / C), so that a unit fits C items and the card's
+// blocks share the walks evenly. Unit u: chunks from u cu, n of them.
+PHD int weight_units(int W, int K, int C, int blocks) {
+  const int ch = (W * K + C - 1) / C;
+  return ch > blocks ? ch : blocks;
+}
+
+// Unit u of nu: its chunks loaded, walked and their (ma, tw) copied to the
+// chunk roots tr (item g for global chunk g).
+template <int F, class E>
+PHD void weight_unit(const E& ex, const Work& wk, uint64_t* words, const Vec& tr, const int64_t* buckets, int W, int D,
+                     int K, int u, int nu) {
+  const int total = W * K, cu = (total + nu - 1) / nu, g0 = u * cu < total ? u * cu : total;
+  const int n = g0 + cu < total ? cu : total - g0;
+  if (n <= 0) return;
+  const Vec st{words, cu};
+  weight_load<F>(ex, st, n, buckets, g0, W, D, K);
+  weight_walk<F>(ex, wk, st, n, D / K);
+  ex.tasks(4 * W_ROOT_SLOTS * n, [&](int t) {
+    const int j = t % n, q = t / n;
+    tr.s[(int64_t)q * tr.n + g0 + j] = st.s[q * cu + j];
+  });
+  ex.sync();
+}
+
+// The windows' totals (item w K's tw) as canonical limbs, out (3, 22, W):
+// windows w0, w0 + step, ...
+template <int F, class E>
+PHD void weight_store(const E& ex, const Vec& tr, int64_t* out, int W, int K, int w0, int step) {
+  const int nw = w0 < W ? (W - w0 + step - 1) / step : 0;
+  ex.tasks(3 * nw, [&](int t) {
+    const int w = w0 + (t % nw) * step, c = t / nw;
+    fld::to_limbs<F, fld::MUL32_CALL>(tr.get(W_TW + c, w * K), out + (int64_t)c * fld::REP_LIMBS * W + w, W);
+  });
+}
+
+// The tree's levels of merges per window above which a level runs over
+// all of the grid's blocks (a grid barrier before each); from it on, each
+// window's last levels run on one block.
+constexpr int WEIGHT_WINDOW_MERGES = 8;
 
 // ---------------------------------------------------------------------------
 // K5, the lane repair: an in-place Blelloch scan of a window's G lane
@@ -213,24 +596,351 @@ PHD void weight_merge(Pt* tw, Pt* ma, int j, int half, int s, int n, bool with_m
 // (e the parent's exclusive value), as in pmsm's loop of one-step K5
 // launches; the left entries that loop stashes are the ones an in-place
 // scan leaves untouched.
+//
+// A window's lanes are split over a cluster of CL blocks (lane_cluster),
+// Gc = G / CL contiguous lanes each. The levels whose groups fit in Gc
+// lanes run in each block on its own lanes; the levels above them touch
+// only the blocks' last lanes (their roots), so block 0 runs them on a
+// copy of the CL roots (top) that every block writes into its shared
+// memory, and each block reads its root back: the same adds on the same
+// operands as one scan over G lanes.
 // ---------------------------------------------------------------------------
+constexpr int LANE_CLUSTER = 8;  // blocks a window at most (a portable cluster)
+constexpr int LANE_MIN = 32;     // lanes a block at least, where G allows
 
-// Merge m of the up-sweep level whose groups are s lanes wide.
-template <int F, int P>
-PHD void lane_up(Pt* a, int32_t* f, int m, int s) {
-  const int l = m * 2 * s + s - 1, r = l + s;
-  if (!f[r]) a[r] = padd_f<F, P>(a[l], a[r]);
-  f[r] |= f[l];
+PHD int lane_cluster(int64_t G) {
+  const int64_t c = G / LANE_MIN;
+  return c < 1 ? 1 : (c > LANE_CLUSTER ? LANE_CLUSTER : (int)c);
 }
 
-// Merge m of the down-sweep level whose groups are s lanes wide.
-template <int F, int P>
-PHD void lane_down(Pt* a, const int32_t* f, int m, int s) {
-  const int l = m * 2 * s + s - 1, r = l + s;
-  const Pt left = a[l], e = a[r];
-  a[l] = e;
-  a[r] = f[l] ? left : padd_f<F, P>(e, left);
+// Lane i of the window's block: load its carry (3, 22, lanes) at lane
+// index base + i and its flag.
+template <int F, class E>
+PHD void lane_load(const E& ex, const Vec& a, int32_t* f, const int64_t* carry, const int32_t* has_start, int64_t base,
+                   int64_t lanes) {
+  const int n = a.n;
+  const int64_t cs = (int64_t)fld::REP_LIMBS * lanes;
+  ex.tasks(3 * n, [&](int t) {
+    const int i = t % n, c = t / n;
+    a.put(c, i, to_mont<F>(carry + c * cs + base + i, lanes));
+    if (c == 0) f[i] = has_start[base + i] != 0;
+  });
+  ex.sync();
 }
+
+template <int F, class E>
+PHD void lane_store(const E& ex, const Vec& a, int64_t* out, int64_t base, int64_t lanes) {
+  const int n = a.n;
+  const int64_t cs = (int64_t)fld::REP_LIMBS * lanes;
+  ex.tasks(3 * n, [&](int t) {
+    const int i = t % n, c = t / n;
+    fld::to_limbs<F, fld::MUL32_CALL>(a.get(c, i), out + c * cs + base + i, lanes);
+  });
+}
+
+// The up-sweep's levels over a's n lanes.
+template <int F, class E>
+PHD void lane_up(const E& ex, const Work& wk, const Vec& a, int32_t* f) {
+#pragma unroll 1
+  for (int s = 1; s < a.n; s <<= 1)
+    run<F, true>(
+        ex, wk, a.n / (2 * s),
+        [&](int m) {
+          const int l = m * 2 * s + s - 1, r = l + s;
+          return Op{ADD, PRef{a, 0, l}, PRef{a, 0, r}, !f[r]};
+        },
+        [&](int m, int c, const Fe& v) {
+          const int l = m * 2 * s + s - 1, r = l + s;
+          if (wk.live[m % JOBS]) a.put(c, r, v);
+          if (c == 0) f[r] |= f[l];
+        });
+}
+
+// The down-sweep's levels over a's n lanes.
+template <int F, class E>
+PHD void lane_down(const E& ex, const Work& wk, const Vec& a, const int32_t* f) {
+#pragma unroll 1
+  for (int s = a.n / 2; s >= 1; s >>= 1)
+    run<F, true>(
+        ex, wk, a.n / (2 * s),
+        [&](int m) {
+          const int l = m * 2 * s + s - 1, r = l + s;
+          return Op{ADD, PRef{a, 0, r}, PRef{a, 0, l}, !f[l]};
+        },
+        [&](int m, int c, const Fe& v) {
+          const int l = m * 2 * s + s - 1, r = l + s;
+          const Fe left = a.get(c, l);
+          a.put(c, l, a.get(c, r));
+          a.put(c, r, wk.live[m % JOBS] ? v : left);
+        });
+}
+
+// Block 0's part between the cluster's barriers: the scan's top levels
+// over the CL roots, the root of all set to the identity between sweeps.
+template <int F, class E>
+PHD void lane_top(const E& ex, const Work& wk, const Vec& top, int32_t* topf) {
+  lane_up<F>(ex, wk, top, topf);
+  ex.tasks(3, [&](int c) { top.put(c, top.n - 1, identity_coord<F>(c)); });
+  ex.sync();
+  lane_down<F>(ex, wk, top, topf);
+}
+
+// Shared memory of a block of a split program: its point items (`slots`
+// slots of n items), the round scratch (tmp of JOBS items, then the jobs'
+// states) and `ints` more int32 words.
+constexpr size_t block_bytes(int slots, int n, int ints) {
+  return ((size_t)4 * slots * n + (size_t)4 * TMP_SLOTS * JOBS) * sizeof(uint64_t) +
+         ((size_t)ints + JOBS) * sizeof(int32_t);
+}
+
+// The weighting's block: C chunks of S buckets.
+constexpr size_t weight_bytes(int S, int C) { return block_bytes(weight_slots(S), C, 0); }
+
+// The repair's block: Gc lanes (their points unless they are in scratch),
+// block 0's top items (LANE_CLUSTER points), the lanes' and the top's flags.
+constexpr size_t lane_bytes(int Gc, bool scratch) {
+  return block_bytes(PT_SLOTS, scratch ? 0 : Gc, Gc + LANE_CLUSTER) +
+         (size_t)4 * PT_SLOTS * LANE_CLUSTER * sizeof(uint64_t);
+}
+
+// The round scratch of a block whose first `words` words hold its items.
+PHD Work block_work(uint64_t* smem, size_t words) {
+  uint64_t* tmp = smem + words;
+  return {{tmp, JOBS}, reinterpret_cast<int*>(tmp + 4 * TMP_SLOTS * JOBS)};
+}
+
+// A block's program marks the start of unit u (stamp(-1, u)) and the end
+// of each of its steps (stamp(k, u)), all its threads after a barrier; the
+// kernels on the path and the host build take NoStamp,
+// scripts/torch_weight_sweep.py's timeline records the time.
+struct NoStamp {
+  PHD void operator()(int, int) const {}
+};
+
+// How a kernel's blocks take the steps of its program, the barriers
+// between steps spanning blocks (a grid's or a cluster's):
+//   blocks(): the blocks the program spans (the grid, or a cluster);
+//   step(fn): fn(r, blk, ex, smem) for the block of rank r among them,
+//     blk its index in the launch's grid, ex its threads, smem its shared
+//     memory;
+//   sync(): the barrier between steps;
+//   arrive(), wait(): a split barrier (every block has started after the
+//     wait); peer(p, r): p in block r's shared memory.
+// On the card (GridBlock, ClusterBlock below) step runs fn once, for this
+// block. The host build's SerialBlocks runs fn for every block in turn (or
+// last to first), each with its own shared memory, and needs no barrier:
+// the kernels and the host build run the same program.
+struct SerialBlocks {
+  int nb, first;  // nb blocks, grid indexes first .. first + nb - 1
+  bool reverse;
+  uint64_t* smem;  // nb blocks' shared memory, `words` words each
+  size_t words;
+  PHD int blocks() const { return nb; }
+  template <class Fn>
+  PHD void step(Fn fn) const {
+    for (int i = 0; i < nb; i++) {
+      const int r = reverse ? nb - 1 - i : i;
+      fn(r, first + r, Serial{reverse}, smem + r * words);
+    }
+  }
+  PHD void sync() const {}
+  PHD void arrive() const {}
+  PHD void wait() const {}
+  template <class T>
+  PHD T* peer(T* p, int r) const {
+    const int64_t mine = (int64_t)(reinterpret_cast<uint64_t*>(p) - smem) / (int64_t)words;
+    return reinterpret_cast<T*>(reinterpret_cast<uint64_t*>(p) + (r - mine) * (int64_t)words);
+  }
+};
+
+// K3's bucket weighting (points.cu, padd_weight_sum_kernel: a cooperative
+// launch of as many blocks as the card holds). Block b walks units u = b,
+// b + nb, ... (weight_units; stamp(-1, u) before, stamp(1, u) after);
+// then every level of the tree whose windows hold more than
+// WEIGHT_WINDOW_MERGES merges runs over all blocks, a contiguous share of
+// the level's merges a block, a barrier before each (stamp(k, units + k /
+// 5) for level k, block 0); then block b finishes windows b, b + nb, ...
+// alone and stores their totals. roots: the chunk roots, W K items of 6
+// slots.
+template <int F, class Blocks, class Stamp>
+FHD void weight_grid(const Blocks& grid, const int64_t* buckets, int64_t* out, uint64_t* roots, int W, int D, int K,
+                     int C, Stamp stamp) {
+  const int nb = grid.blocks(), units = weight_units(W, K, C, nb);
+  const size_t words = (size_t)4 * weight_slots(D / K) * C;
+  const Vec tr{roots, W * K};
+  grid.step([&](int b, int, const auto& ex, uint64_t* smem) {
+    const Work wk = block_work(smem, words);
+#pragma unroll 1
+    for (int u = b; u < units; u += nb) {
+      stamp(-1, u);
+      weight_unit<F>(ex, wk, smem, tr, buckets, W, D, K, u, units);
+      stamp(1, u);
+    }
+  });
+  int s = 1, level = 0;
+#pragma unroll 1
+  for (; s < K && K / (2 * s) > WEIGHT_WINDOW_MERGES; s <<= 1, level++) {
+    grid.sync();
+    const int total = W * (K / (2 * s)), per = (total + nb - 1) / nb;
+    grid.step([&](int b, int, const auto& ex, uint64_t* smem) {
+      const int g0 = b * per < total ? b * per : total, g1 = g0 + per < total ? g0 + per : total;
+      weight_level<F>(ex, block_work(smem, words), tr, K, s, g0, g1);
+      if (b == 0) stamp(level % 5, units + level / 5);
+    });
+  }
+  grid.sync();
+  grid.step([&](int b, int, const auto& ex, uint64_t* smem) {
+    const Work wk = block_work(smem, words);
+#pragma unroll 1
+    for (int w = b; w < W; w += nb)
+#pragma unroll 1
+      for (int s2 = s; s2 < K; s2 <<= 1)
+        weight_level<F>(ex, wk, tr, K, s2, w * (K / (2 * s2)), (w + 1) * (K / (2 * s2)));
+    weight_store<F>(ex, tr, out, W, K, b, nb);
+  });
+}
+
+// A block of the repair in its shared memory (lane_bytes): its lanes'
+// points (in smem, or block blk's part of scratch (W, G, 12 words) in
+// device memory when scratch is given), the round scratch, block 0's top
+// items, the lanes' flags, the top's flags.
+struct LaneBlock {
+  Vec a;
+  Work wk;
+  uint64_t* top;
+  int32_t *f, *topf;
+};
+
+PHD LaneBlock lane_layout(uint64_t* smem, uint64_t* scratch, int blk, int Gc) {
+  const Vec a{scratch ? scratch + (int64_t)blk * 4 * PT_SLOTS * Gc : smem, Gc};
+  const Work wk = block_work(smem, scratch ? 0 : (size_t)4 * PT_SLOTS * Gc);
+  uint64_t* top = reinterpret_cast<uint64_t*>(wk.live + JOBS);  // 8-byte aligned: JOBS is even
+  int32_t* f = reinterpret_cast<int32_t*>(top + 4 * PT_SLOTS * LANE_CLUSTER);
+  return {a, wk, top, f, f + Gc};
+}
+
+// K5's lane repair of one window (points.cu, padd_select_scan_kernel: a
+// cluster of CL blocks a window, grid W CL). Block r of the cluster (grid
+// block blk) holds lanes r Gc .. (r + 1) Gc - 1 (Gc = G / CL), at lane
+// index blk Gc of all windows'; it loads them (stamp 0), runs the
+// up-sweep's levels within them (1) and, once every block of the cluster
+// has started, writes its root (the last lane, with its flag) into block
+// 0's top items; block 0 runs the top levels on them; each block reads
+// its root back (2, 3), runs the down-sweep's levels (4) and stores its
+// lanes.
+template <int F, class Blocks, class Stamp>
+FHD void lane_scan(const Blocks& cl, const int64_t* carry, const int32_t* has_start, int64_t* out,
+                   uint64_t* scratch, int W, int G, Stamp stamp) {
+  const int CL = cl.blocks(), Gc = G / CL;
+  const int64_t lanes = (int64_t)W * G;
+  cl.step([&](int r, int blk, const auto& ex, uint64_t* smem) {
+    const LaneBlock lb = lane_layout(smem, scratch, blk, Gc);
+    stamp(-1, blk);
+    lane_load<F>(ex, lb.a, lb.f, carry, has_start, (int64_t)blk * Gc, lanes);
+    cl.arrive();
+    stamp(0, blk);
+    lane_up<F>(ex, lb.wk, lb.a, lb.f);
+    stamp(1, blk);
+    cl.wait();
+    const Vec top0{cl.peer(lb.top, 0), CL};
+    int32_t* topf0 = cl.peer(lb.topf, 0);
+    ex.tasks(4, [&](int c) {
+      if (c < 3)
+        top0.put(c, r, lb.a.get(c, Gc - 1));
+      else
+        topf0[r] = lb.f[Gc - 1];
+    });
+  });
+  cl.sync();
+  cl.step([&](int r, int blk, const auto& ex, uint64_t* smem) {
+    if (r != 0) return;
+    const LaneBlock lb = lane_layout(smem, scratch, blk, Gc);
+    lane_top<F>(ex, lb.wk, Vec{lb.top, CL}, lb.topf);
+  });
+  cl.sync();
+  cl.step([&](int r, int blk, const auto& ex, uint64_t* smem) {
+    const LaneBlock lb = lane_layout(smem, scratch, blk, Gc);
+    stamp(2, blk);
+    const Vec top0{cl.peer(lb.top, 0), CL};
+    ex.tasks(3, [&](int c) { lb.a.put(c, Gc - 1, top0.get(c, r)); });
+    ex.sync();
+    stamp(3, blk);
+    lane_down<F>(ex, lb.wk, lb.a, lb.f);
+    stamp(4, blk);
+    lane_store<F>(ex, lb.a, out, (int64_t)blk * Gc, lanes);
+  });
+  cl.sync();  // block 0's top stays readable until every block has read its root
+}
+
+#ifdef __CUDACC__
+// This block of a cooperative grid (every block of it resident). Its
+// members are host-device so that the programs above stay so; they do
+// nothing on the host, where no kernel runs.
+struct GridBlock {
+  uint64_t* smem;
+  PHD int blocks() const {
+#ifdef __CUDA_ARCH__
+    return (int)gridDim.x;
+#else
+    return 0;
+#endif
+  }
+#pragma nv_exec_check_disable
+  template <class Fn>
+  PHD void step(Fn fn) const {
+#ifdef __CUDA_ARCH__
+    fn((int)blockIdx.x, (int)blockIdx.x, Threads{(int)threadIdx.x, (int)blockDim.x}, smem);
+#endif
+  }
+  PHD void sync() const {
+#ifdef __CUDA_ARCH__
+    cooperative_groups::this_grid().sync();
+#endif
+  }
+};
+
+// This block of a cluster of n blocks along x. arrive() and wait() are
+// barrier.cluster's two halves: after the wait every block of the cluster
+// has arrived, so has started, and its shared memory may be touched.
+struct ClusterBlock {
+  uint64_t* smem;
+  int n;
+  PHD int blocks() const { return n; }
+#pragma nv_exec_check_disable
+  template <class Fn>
+  PHD void step(Fn fn) const {
+#ifdef __CUDA_ARCH__
+    fn((int)cooperative_groups::this_cluster().block_rank(), (int)blockIdx.x,
+       Threads{(int)threadIdx.x, (int)blockDim.x}, smem);
+#endif
+  }
+  PHD void sync() const {
+#ifdef __CUDA_ARCH__
+    cooperative_groups::this_cluster().sync();
+#endif
+  }
+  PHD void arrive() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+#endif
+  }
+  PHD void wait() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+#endif
+  }
+  template <class T>
+  PHD T* peer(T* p, int r) const {
+#ifdef __CUDA_ARCH__
+    return cooperative_groups::this_cluster().map_shared_rank(p, r);
+#else
+    return p;
+#endif
+  }
+};
+#endif
+
+}  // namespace split
 
 // ---------------------------------------------------------------------------
 // K3, the fix-up: lane (w, g) of the chunked scan owns positions

@@ -2,8 +2,10 @@
 
 Counterpart of mina_bridge_tpu/curves/pallas_kernels.py (padd, pdouble,
 padd_select, padd_mixed_select2, padd_mixed_select, all through
-`_pallas_apply`). The CUDA kernels are in csrc/points.cu: one thread per
-lane, bounds-checked (see the note there on what bounds them).
+`_pallas_apply`). The CUDA kernels are in csrc/points.cu, bounds-checked
+(see the note there on what bounds them): one thread per lane, or (K7,
+the bucket weighting and the lane repair) each point op split over
+several threads.
 
 A point batch is (3, 22, N) int64: coordinates, limbs, lanes. K6's q is
 (2, 22, N) (x, y) with Z = 1 - q_inf; K7's q is (3, 22, N) with a Z row of
@@ -44,17 +46,20 @@ __all__ = [
     "padd_weight_sum",
     "padd_fixup",
     "padd_select_scan",
+    "split_launch_info",
     "with_z",
 ]
 
 # The bucket weighting: a window's D buckets in WEIGHT_CHUNKS chunks (fewer
-# if D is smaller), WEIGHT_THREADS chunks a block, one chunk a thread
-# (the fastest shape of scripts/torch_weight_sweep.py on an H100; PERF.md).
-WEIGHT_CHUNKS = 1024
-WEIGHT_THREADS = 128
-# The lane repair keeps a window's lanes in shared memory up to this G, in
-# device memory above it; its flags (4 B a lane) always in shared memory.
-LANE_SCAN_SHARED_G = 2048
+# if D is smaller), walked in units of at most WEIGHT_BLOCK_CHUNKS chunks,
+# one a block where the card holds enough blocks (the fastest shape of
+# scripts/torch_weight_sweep.py on an H100; PERF.md).
+WEIGHT_CHUNKS = 256
+WEIGHT_BLOCK_CHUNKS = 32
+# The lane repair keeps a window's lanes in shared memory up to this G (a
+# cluster of 8 blocks of 2,048 lanes), in device memory above it; its flags
+# (4 B a lane) always in shared memory.
+LANE_SCAN_SHARED_G = 16384
 LANE_SCAN_MAX_G = 32768
 PT_WORDS = 12  # a point as Montgomery words: 3 coordinates of 4 x 64 bits
 
@@ -157,7 +162,7 @@ def weight_chunks(D: int) -> tuple[int, int]:
     if D < 1 or D & (D - 1):
         raise ValueError(f"padd_weight_sum: the bucket count D must be a power of two, got {D}")
     K = min(WEIGHT_CHUNKS, D)
-    return K, min(WEIGHT_THREADS, K)
+    return K, min(WEIGHT_BLOCK_CHUNKS, K)
 
 
 def padd_weight_sum_plain(c: CurveSpec, buckets: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
@@ -343,9 +348,10 @@ def padd_mixed_select(c: CurveSpec, p, q, keep_q, q_inf) -> torch.Tensor:
 
 
 def padd_weight_sum(c: CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
-    """K3, the MSM's bucket weighting in one launch: sum_{d=1}^{D} d B_{w,d}
-    for each window of buckets (3, L, W, D + 1), D a power of two ->
-    (3, L, W). See padd_weight_sum_plain."""
+    """K3, the MSM's bucket weighting in one (cooperative) launch: units of
+    at most WEIGHT_BLOCK_CHUNKS chunks walked, then the tree's levels over
+    all blocks: sum_{d=1}^{D} d B_{w,d} for each window of buckets (3, L,
+    W, D + 1), D a power of two -> (3, L, W). See padd_weight_sum_plain."""
     if buckets.device.type == "cpu":
         return padd_weight_sum_plain(c, buckets)
     name = "padd_weight_sum"
@@ -356,14 +362,34 @@ def padd_weight_sum(c: CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
     W, NB = buckets.shape[2:]
     K, C = weight_chunks(NB - 1)
     out = torch.empty((3, ffl.REP_LIMBS, W), dtype=ffl.DTYPE, device=buckets.device)
-    partials = torch.empty((W, 2 * (K // C), PT_WORDS), dtype=torch.int64, device=buckets.device)
-    counters = torch.zeros(W, dtype=torch.int32, device=buckets.device)
+    roots = torch.empty((W, 2 * K, PT_WORDS), dtype=torch.int64, device=buckets.device)
     rc = kernels.lib("points").mbt_padd_weight_sum(
-        field_id(c.base), buckets.data_ptr(), out.data_ptr(), partials.data_ptr(), counters.data_ptr(),
-        W, NB - 1, K, C, kernels.stream(),
+        field_id(c.base), buckets.data_ptr(), out.data_ptr(), roots.data_ptr(), W, NB - 1, K, C, kernels.stream(),
     )
     kernels.check(rc, name)
     return out
+
+
+def split_launch_info(name: str, W: int, n: int) -> dict:
+    """What one launch of the bucket weighting (name "padd_weight_sum", n =
+    D buckets a window) or the lane repair ("padd_select_scan", n = G lanes
+    a window) over W windows gets on this card: the weighting's units (all
+    windows) or the repair's blocks a window (its cluster); threads and
+    shared-memory bytes a block, registers a thread, blocks an SM holds;
+    at once, the weighting's blocks or the repair's clusters the card
+    holds. Card only."""
+    import ctypes
+
+    if name == "padd_weight_sum":
+        kind, (K, C) = 0, weight_chunks(n)
+    else:
+        kind, K, C = 1, int(n > LANE_SCAN_SHARED_G), 0
+    info = (ctypes.c_int64 * 6)()
+    rc = kernels.lib("points").mbt_split_launch_info(kind, W, n, K, C, ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"{name}: no launch at W {W}, n {n}: cudaError {rc}")
+    keys = ("units_or_cluster", "threads", "shared_bytes", "registers", "blocks_an_sm", "at_once")
+    return dict(zip(keys, (int(v) for v in info)))
 
 
 def padd_fixup(c: CurveSpec, buckets: torch.Tensor, inflow: torch.Tensor, dig: torch.Tensor) -> torch.Tensor:
@@ -391,9 +417,9 @@ def padd_fixup(c: CurveSpec, buckets: torch.Tensor, inflow: torch.Tensor, dig: t
 
 
 def padd_select_scan(c: CurveSpec, carry: torch.Tensor, has_start: torch.Tensor) -> torch.Tensor:
-    """K5, the MSM's Blelloch lane repair in one launch, one block per
-    window: carry (3, L, W, G), has_start (W, G), G a power of two up to
-    LANE_SCAN_MAX_G -> (3, L, W, G). See padd_select_scan_plain."""
+    """K5, the MSM's Blelloch lane repair in one launch, a cluster of up to
+    8 blocks per window: carry (3, L, W, G), has_start (W, G), G a power of
+    two up to LANE_SCAN_MAX_G -> (3, L, W, G). See padd_select_scan_plain."""
     if carry.device.type == "cpu":
         return padd_select_scan_plain(c, carry, has_start)
     name = "padd_select_scan"

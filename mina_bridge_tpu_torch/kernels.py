@@ -3,13 +3,15 @@
 Each source in `csrc/` (pow_chain.cu, transcript.cu, points.cu; probe.cu,
 a product-latency probe, and k1_sweep.cu and k7_split.cu, K1's
 alternatives and K7 split into its parts for scripts/torch_kernel_sweep.py,
-which no path calls; all include field.cuh, some also pow_chain.cuh or
-points.cuh) is compiled by `nvcc` for sm_90a into a shared library with a
-plain C interface, loaded with ctypes.
+and split_timeline.cu, the per-block timeline of K3's weighting and K5's
+lane repair for scripts/torch_weight_sweep.py, which no path calls; all
+include field.cuh, some also pow_chain.cuh or points.cuh) is compiled by
+`nvcc` for sm_90a into a shared library with a plain C interface, loaded
+with ctypes.
 Builds land in `<repo>/build/kernels/`, named by a hash of the source
 and the headers, so a changed source is rebuilt and an unchanged one is
 reused. `build_all()` starts one `nvcc` per source at once (all but the
-sweep's two, SWEEP_ONLY, unless asked).
+sweeps' three, SWEEP_ONLY, unless asked).
 
 `launches` counts, per kernel, the launches its wrapper made; each
 wrapper adds one where it launches and nowhere else.
@@ -48,15 +50,17 @@ SOURCES = {
         "mbt_padd_select": [_I, _V, _V, _V, _V, _L, _V],
         "mbt_padd_mixed_select2_scan": [_I, _V, _V, _V, _V, _V, _L, _L, _L, _V],
         "mbt_padd_mixed_select": [_I, _V, _V, _V, _V, _V, _L, _V],
-        "mbt_padd_weight_sum": [_I, _V, _V, _V, _V, _L, _L, _L, _L, _V],
+        "mbt_padd_weight_sum": [_I, _V, _V, _V, _L, _L, _L, _L, _V],
         "mbt_padd_fixup": [_I, _V, _V, _V, _L, _L, _L, _L, _V],
         "mbt_padd_select_scan": [_I, _V, _V, _V, _V, _L, _L, _V],
+        "mbt_split_launch_info": [_I, _L, _L, _L, _L, _V],
     },
     "probe": {"mbt_product_chain": [_I, _I, _V, _V, _I, _V]},
     "k1_sweep": {"mbt_k1_sweep": [_I, _V, _V, _V, _I, _I, _L, _I, _I, _I, _V]},
     "k7_split": {"mbt_k7_split": [_I, _I, _I, _V, _V, _V, _V, _V, _L, _I, _V]},
+    "split_timeline": {"mbt_split_timeline": [_I, _V, _V, _V, _V, _L, _L, _L, _L, _L, _V, _V]},
 }
-SWEEP_ONLY = ("k1_sweep", "k7_split")
+SWEEP_ONLY = ("k1_sweep", "k7_split", "split_timeline")
 
 KERNELS = (
     "pow_const", "transcript_blocks", "padd", "padd_weight_sum", "padd_fixup", "pdouble", "padd_select",

@@ -16,12 +16,17 @@ warm-up. Prints one JSON line and appends it to
 chiprun_out/compare_trees.jsonl. Needs one CUDA card.
 
 With --kernels it times kernels alone instead, through the tree's own
-wrappers, on seeded inputs that both trees take: K1 (`pow_const_rows`,
-e = p - 2 in the scalar field, as the verify's inversions) at 160 and 512
-elements, and K7 (`padd_mixed_select`) at 20,480 lanes. Each of `reps`
-runs is a CUDA-event mean over 20 launches, queued while the device
-sleeps (~25 ms), so that the events time the device and not the host's
-queueing; the outputs are checked exact against the plain versions first.
+wrappers, on inputs that both trees take: K1 (`pow_const_rows`, e = p - 2
+in the scalar field, as the verify's inversions) at 160 and 512 elements;
+K7 (`padd_mixed_select`) at 20,480 lanes; K3's bucket weighting
+(`padd_weight_sum`, W 20, D 4,096) and K5's lane repair
+(`padd_select_scan`, W 20, G 1,024) on the inputs one MSM over the 2^16
+Pallas SRS gives them (seeded scalars, recorded through this checkout's
+pmsm) and on seeded canonical limbs on each curve (the repair's flags set
+at a fifth of the lanes). Each of `reps` runs is a CUDA-event mean over 20
+launches, queued while the device sleeps (~25 ms), so that the events
+time the device and not the host's queueing; the outputs are checked
+exact against the plain versions first.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=20261016)
-    ap.add_argument("--kernels", action="store_true", help="time K1 and K7 alone")
+    ap.add_argument("--kernels", action="store_true", help="time K1, K7, the weighting and the repair alone")
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -77,11 +82,12 @@ def main() -> int:
     t0 = time.time()
     kernels.build_all()
     build_s = time.time() - t0
-    if args.kernels:
-        result = {"tag": args.tag or tree.name, "card": card, "build_s": build_s,
-                  **time_kernels(args.reps, args.seed)}
-        return write(result)
     srs = load_srs("pallas")
+    if args.kernels:
+        points = ipa.aff_to_rep(torch.as_tensor(srs["g"], device=dev))
+        result = {"tag": args.tag or tree.name, "card": card, "build_s": build_s,
+                  **time_kernels(args.reps, args.seed, points)}
+        return write(result)
     index, proofs = bf.load_fixture(bf.fixture_path(16, args.batch))
     dindex = kv.DeviceVerifierIndex.from_host(index, srs, dev)
     dproofs = kv.DeviceProofs.from_host(proofs, dev)
@@ -141,13 +147,57 @@ def write(result: dict) -> int:
     return 0
 
 
-def time_kernels(reps: int, seed: int) -> dict:
-    """K1 at 160 and 512 elements and K7 at 20,480 lanes: median, min and
-    max of `reps` CUDA-event means of 20 launches each."""
+def canonical_rows(rng, shape: tuple, dev) -> "torch.Tensor":
+    """Seeded (3, 22) + shape limb rows of field elements below 2^254 (so
+    canonical in both Pasta fields, as the MSM's kernels write them)."""
+    import torch
+
+    limbs = rng.integers(0, 1 << 13, size=(3, 22) + shape)
+    limbs[:, 19] &= (1 << 7) - 1  # bits 247..253
+    limbs[:, 20:] = 0
+    return torch.as_tensor(limbs, device=dev)
+
+
+def msm_phase_inputs(points, seed: int) -> dict:
+    """The weighting's and the repair's arguments in one pmsm.msm over
+    `points` with seeded scalars."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
     from mina_bridge_tpu_torch.curves.host import PALLAS
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.ops import pmsm
+
+    rng = np.random.default_rng(seed + 1)
+    scalars = torch.as_tensor(
+        ffl.ints_to_limbs([int.from_bytes(rng.bytes(32), "little") % PALLAS.scalar.p for _ in range(points.shape[0])]),
+        device=points.device,
+    )
+    seen, orig = {}, {}
+    for name in ("padd_weight_sum", "padd_select_scan"):
+        orig[name] = getattr(pk, name)
+
+        def spy(*a, _name=name):
+            seen[_name] = tuple(x.contiguous().clone() if isinstance(x, torch.Tensor) else x for x in a)
+            return orig[_name](*a)
+
+        setattr(pk, name, spy)
+    try:
+        pmsm.msm(PALLAS, scalars, points)
+    finally:
+        for name, fn in orig.items():
+            setattr(pk, name, fn)
+    return seen
+
+
+def time_kernels(reps: int, seed: int, points) -> dict:
+    """K1 at 160 and 512 elements, K7 at 20,480 lanes, K3's weighting and
+    K5's repair at the MSM's shapes: median, min and max of `reps`
+    CUDA-event means of 20 launches each."""
+    import torch
+
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+    from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA
     from mina_bridge_tpu_torch.fields import chain_kernel as ck
     from mina_bridge_tpu_torch.fields import ffl
 
@@ -170,6 +220,9 @@ def time_kernels(reps: int, seed: int) -> dict:
     def same(spec, a, b) -> bool:
         return torch.equal(ffl.canon(spec, a), ffl.canon(spec, b))
 
+    def same_rows(spec, a, b) -> bool:
+        return same(spec, a.reshape(3, 22, -1).permute(0, 2, 1), b.reshape(3, 22, -1).permute(0, 2, 1))
+
     rng = np.random.default_rng(seed)
     fs = PALLAS.scalar
     e = fs.p - 2
@@ -191,6 +244,26 @@ def time_kernels(reps: int, seed: int) -> dict:
     if not same(PALLAS.base, got.permute(0, 2, 1), want.permute(0, 2, 1)):
         raise RuntimeError("K7 disagrees with its plain version at 20,480 lanes")
     out["k7_20480_ms"] = stats(lambda: pk.padd_mixed_select(PALLAS, p, q, keep, q_inf))
+
+    W, D, G = 20, 4096, 1024
+    msm = msm_phase_inputs(points, seed)
+    sets = {
+        "k3b_msm_ms": ("padd_weight_sum", msm["padd_weight_sum"]),
+        "k5a_msm_ms": ("padd_select_scan", msm["padd_select_scan"]),
+    }
+    for curve in (PALLAS, VESTA):
+        tag = "pallas" if curve is PALLAS else "vesta"
+        sets[f"k3b_{tag}_ms"] = ("padd_weight_sum", (curve, canonical_rows(rng, (W, D + 1), "cuda")))
+        flags = torch.as_tensor(rng.random((W, G)) < 0.2, device="cuda").to(torch.int32)
+        sets[f"k5a_{tag}_ms"] = ("padd_select_scan", (curve, canonical_rows(rng, (W, G), "cuda"), flags))
+    for key, (name, args) in sets.items():
+        kern, plain = getattr(pk, name), getattr(pk, name + "_plain")
+        if not same_rows(args[0].base, kern(*args), plain(*args)):
+            raise RuntimeError(f"{name} disagrees with its plain version ({key})")
+        out[key] = stats(lambda kern=kern, args=args: kern(*args))
+    if hasattr(pk, "split_launch_info"):
+        out["launch"] = {name: pk.split_launch_info(name, W, n) for name, n in
+                         (("padd_weight_sum", D), ("padd_select_scan", G))}
     return out
 
 

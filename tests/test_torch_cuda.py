@@ -183,12 +183,12 @@ def _same(curve, a, b):
     )
 
 
-@pytest.mark.parametrize("W,D", [(20, 4096), (3, 4096), (20, 64), (3, 64), (3, 1024)])
+@pytest.mark.parametrize("W,D", [(20, 4096), (3, 4096), (20, 64), (3, 64), (3, 1024), (1, 4096), (1, 1)])
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
 def test_weight_sum(dev, curve, W, D):
-    """K3's bucket weighting (D = 4096: eight blocks a window and the
-    last-block combine, four buckets a chunk; 1024: eight blocks, one
-    bucket a chunk; 64: one block) with identity buckets."""
+    """K3's bucket weighting (D = 4096 and 1024: several units a window and
+    tree levels over all blocks; 64: one unit; 1: one chunk of one bucket)
+    with identity buckets, at 20 windows, 3 and 1."""
     b = _rows(curve, W * (D + 1), 10 + D, identity_every=6).reshape(3, 22, W, D + 1).to(dev)
     got = pk.padd_weight_sum(curve, b)
     assert got.shape == (3, 22, W)
@@ -211,18 +211,31 @@ def test_fixup(dev, curve):
     assert _same(curve, got, want)
 
 
-@pytest.mark.parametrize("G", [2, 16, 1024, 4096, 32768])
+@pytest.mark.parametrize("G", [2, 16, 64, 256, 1024, 4096, 16384, 32768])
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
 def test_lane_scan(dev, curve, G):
-    """K5's Blelloch lane repair in one launch, random flags: lanes in
-    shared memory (G <= 2048) and in device memory (4096 and 32768, the
-    largest G served)."""
+    """K5's Blelloch lane repair in one launch, random flags: one block a
+    window (G <= 32) and clusters of 2 (64) and 8 blocks (256 and up); lanes
+    in shared memory (G <= 16384) and in device memory (32768, the largest
+    G served)."""
     W = 1 if G > 4096 else 3
     x = _rows(curve, W * G, 15, identity_every=5).reshape(3, 22, W, G).to(dev)
     flags = torch.as_tensor(np.random.default_rng(G).random((W, G)) < 0.2).to(dev)
     assert _same(curve, pk.padd_select_scan(curve, x, flags), pk.padd_select_scan_plain(curve, x, flags))
     with pytest.raises(ValueError):  # 3 G lanes: no power of two
         pk.padd_select_scan(curve, x.repeat(1, 1, 1, 3), flags.repeat(1, 3))
+
+
+@pytest.mark.parametrize("W", [1, 20])
+def test_lane_scan_windows(dev, W):
+    """K5's lane repair at the MSM's G = 1024 (clusters of 8 blocks) over
+    one window and the MSM's 20, segment starts dense (as most of the MSM's
+    windows have them) and none at all (one segment a window)."""
+    G = 1024
+    x = _rows(VESTA, W * G, 16, identity_every=5).reshape(3, 22, W, G).to(dev)
+    for density in (0.9, 0.0):
+        flags = torch.as_tensor(np.random.default_rng(W).random((W, G)) < density).to(dev)
+        assert _same(VESTA, pk.padd_select_scan(VESTA, x, flags), pk.padd_select_scan_plain(VESTA, x, flags))
 
 
 def test_pickles_tips(dev):

@@ -166,9 +166,9 @@ def field_host_lib(tmp_path_factory):
     lib.mbt_host_points.argtypes = [ctypes.c_int, ctypes.c_int, V, V, V, ctypes.c_int64]
     lib.mbt_host_points.restype = ctypes.c_int
     I64 = ctypes.c_int64
-    lib.mbt_host_weight_sum.argtypes = [ctypes.c_int, V, V, I64, I64, I64, I64]
+    lib.mbt_host_weight_sum.argtypes = [ctypes.c_int, V, V, I64, I64, I64, I64, ctypes.c_int]
     lib.mbt_host_fixup.argtypes = [ctypes.c_int, V, V, V, I64, I64, I64, I64]
-    lib.mbt_host_lane_scan.argtypes = [ctypes.c_int, V, V, V, I64, I64]
+    lib.mbt_host_lane_scan.argtypes = [ctypes.c_int, V, V, V, I64, I64, ctypes.c_int]
     for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan):
         fn.restype = ctypes.c_int
     return lib
@@ -176,8 +176,10 @@ def field_host_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("fid,spec", [(0, FP), (1, FQ)], ids=IDS)
 def test_kernel_field_library_host_build(field_host_lib, fid, spec):
-    """mul / square / add / sub / x15 / the K1 chain of field.cuh (host
-    build) vs the plain torch ops, on canonical and on lazy REP inputs;
+    """mul / square / add / sub / x15 / small multiples (x15, x45, x64
+    without a product) / the 32-bit-limb add and sub / the K1 chain of
+    field.cuh (host build) vs the plain torch ops, on canonical and on lazy
+    REP inputs;
     K2's mul32, K1's sqr32 and lane-group products (ops 8-10) and the lazy
     MDS row also vs Python ints, on edge values; the mixed add of K6 and the doubling of K4 (points.cuh on
     mul32) vs the plain point formulas."""
@@ -191,6 +193,11 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
         2: lambda u, v: ffl.add(spec, u, v),
         3: lambda u, v: ffl.sub(spec, u, v),
         4: lambda u, v: ffl.mul_small(spec, u, 15),
+        11: lambda u, v: ffl.mul_small(spec, u, 15),
+        12: lambda u, v: ffl.mul_small(spec, u, 45),
+        13: lambda u, v: ffl.mul_small(spec, u, 64),
+        14: lambda u, v: ffl.add(spec, u, v),
+        15: lambda u, v: ffl.sub(spec, u, v),
     }
     for u in (a, a_lazy):
         u = u.contiguous()
@@ -221,6 +228,10 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
             (5, lambda s, t: ffl.mul(spec, s, t), [x * y % p for x, y in zip(xs_, ys_)]),
             (7, lambda s, t: ffl.square(spec, s), [x * x % p for x in xs_]),
             *((op, lambda s, t: ffl.mul(spec, s, t), [x * y % p for x, y in zip(xs_, ys_)]) for op in (8, 9, 10)),
+            *((op, lambda s, t, k=k: ffl.mul_small(spec, s, k), [k * x % p for x in xs_])
+              for op, k in ((11, 15), (12, 45), (13, 64))),
+            (14, lambda s, t: ffl.add(spec, s, t), [(x + y) % p for x, y in zip(xs_, ys_)]),
+            (15, lambda s, t: ffl.sub(spec, s, t), [(x - y) % p for x, y in zip(xs_, ys_)]),
             (
                 6,
                 lambda s, t: ffl.add(spec, ffl.add(spec, ffl.mul(spec, s, t), ffl.square(spec, t)), ffl.square(spec, s)),
@@ -353,12 +364,17 @@ def _point_rows(curve, n, seed, identity_every):
 
 @pytest.mark.parametrize("fid", [0, 1], ids=IDS)
 def test_msm_phases_host_build(field_host_lib, fid):
-    """The per-thread steps of the MSM's one-launch phases (points.cuh), run
-    by the host build in their kernels' order of blocks, threads and
-    levels, equal the plain versions exactly: the bucket weighting at
-    several (D, K chunks, C chunks a block), one block and several a window
-    (the last-block combine); the Blelloch lane repair at G = 1 to 64 with
-    random flags; the lane fix-up on W G = 3 x 37 lanes of T = 3."""
+    """The MSM's one-launch phases (points.cuh), run by the host build
+    through their kernels' own programs (the blocks of each step between
+    barriers in turn, split::SerialBlocks), equal the plain versions
+    exactly, with every step's blocks and every phase's tasks in turn and
+    last to first (so no step's blocks and no phase's tasks race): the
+    bucket weighting (split point ops) at
+    several (D, K chunks, C chunks a unit), the tree's levels over several
+    blocks (K >= 32) and on one block a window, and 64 chunks a unit (a
+    round's ops in two batches); the Blelloch lane repair (split point ops) at
+    G = 1 to 256 with random flags, one block a window and clusters of 2, 4
+    and 8; the lane fix-up on W G = 3 x 37 lanes of T = 3."""
     curve = (PALLAS, VESTA)[fid]
     spec = curve.base
     L = ffl.REP_LIMBS
@@ -367,20 +383,25 @@ def test_msm_phases_host_build(field_host_lib, fid):
         return torch.equal(ffl.canon(spec, a.reshape(3, L, -1).permute(0, 2, 1)),
                            ffl.canon(spec, b.reshape(3, L, -1).permute(0, 2, 1)))
 
-    for W, D, K, C in ((2, 64, 64, 64), (3, 64, 16, 4), (2, 128, 32, 8), (1, 1, 1, 1)):
+    for W, D, K, C in ((2, 64, 64, 64), (3, 64, 16, 4), (2, 128, 32, 8), (1, 1, 1, 1), (1, 256, 64, 8), (1, 256, 128, 64)):
         b = _point_rows(curve, W * (D + 1), D + W, 5).reshape(3, L, W, D + 1)
-        out = torch.empty((3, L, W), dtype=torch.int64)
-        assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), W, D, K, C) == 0
-        assert same(out, pk.padd_weight_sum_plain(curve, b, K)), (W, D, K, C)
-    assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), 1, 64, 64, 4) != 0  # K / C > C
+        want = pk.padd_weight_sum_plain(curve, b, K)
+        for reverse in (0, 1):
+            out = torch.empty((3, L, W), dtype=torch.int64)
+            assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), W, D, K, C, reverse) == 0
+            assert same(out, want), (W, D, K, C, reverse)
+    assert field_host_lib.mbt_host_weight_sum(fid, b.data_ptr(), out.data_ptr(), 1, 64, 16, 32, 0) != 0  # C > K
 
     rng = np.random.default_rng(fid)
-    for W, G in ((2, 1), (2, 2), (3, 16), (1, 64)):
+    for W, G in ((2, 1), (2, 2), (3, 16), (1, 64), (2, 128), (1, 256)):
         x = _point_rows(curve, W * G, G, 4).reshape(3, L, W, G)
         flags = torch.as_tensor(rng.random((W, G)) < 0.3).to(torch.int32)
-        out = torch.empty_like(x)
-        assert field_host_lib.mbt_host_lane_scan(fid, x.data_ptr(), flags.data_ptr(), out.data_ptr(), W, G) == 0
-        assert same(out, pk.padd_select_scan_plain(curve, x, flags)), G
+        want = pk.padd_select_scan_plain(curve, x, flags)
+        for reverse in (0, 1):
+            out = torch.empty_like(x)
+            assert field_host_lib.mbt_host_lane_scan(fid, x.data_ptr(), flags.data_ptr(), out.data_ptr(), W, G,
+                                                     reverse) == 0
+            assert same(out, want), (G, reverse)
 
     W, G, T, NB = 3, 37, 3, 17
     dig = torch.as_tensor(np.sort(rng.choice([0, 2, 3, 8, 16], size=(W, G * T)), axis=-1))
