@@ -16,13 +16,15 @@ Phases (any failure exits non-zero and prints no result):
   5. hold each kernel against its plain PyTorch version (exact: equal
      canonical limbs): every kernel of the verify on every recorded
      main-path input; K2 also on a seeded B = 33, T = 5 input in each
-     field; K4 also at k = 1; the K6 scan, K3's bucket weighting and
-     fix-up and K5's lane repair also on the MSM's inputs and on seeded
-     ragged inputs per curve (W G no multiple of the block, identity
-     points, segments across lanes; the weighting at D = 64 and 4096, the
-     repair at G = 16, 64, 256 and 4096); the one-step K5 (which the verify no
-     longer calls) on the first up-sweep level of the recorded repair and
-     seeded lanes; K7 (no caller in the system) on the first step of K6's
+     field; K4 also at k = 1; K3's one-step add also on seeded lanes per
+     curve (1, 33, 4,097 and 20,480; identity lanes, q == p, q == -p); the
+     K6 scan, K3's bucket weighting and fix-up and K5's lane repair also on
+     the MSM's inputs and on seeded ragged inputs per curve (W G no
+     multiple of the block, identity points, segments across lanes; the
+     fix-up with few and with most lanes fixing; the weighting at D = 64
+     and 4096, the repair at G = 16, 64, 256 and 4096); the one-step K5
+     (which the verify no longer calls) on the first up-sweep level of the
+     recorded repair and seeded lanes; K7 (no caller in the system) on the first step of K6's
      recorded scan with q's Z row made explicit plus a seeded set with
      identity lanes on each curve, and seeded sets of 20,480 lanes and of
      the ragged 1, 33 and 4,097 lanes on each curve; K1 also on seeded
@@ -346,15 +348,16 @@ def kernel_work(name: str, args) -> tuple[float, float]:
         W, D = args[1].shape[2], args[1].shape[3] - 1
         return W * (D + 1) * point, W * 24 * D * OPS_PER_PRODUCT
     if name == "padd_fixup":
-        # three digits a lane; per fix a bucket and an inflow read, the bucket written
+        # three digits a lane; per fix a bucket and an inflow read, the bucket
+        # written, 12 products (as every split add: b3 by additions)
         fixes = int(pk.fixup_need(args[3], args[2].shape[-1]).sum())
-        return args[3].shape[0] * args[2].shape[-1] * 3 * 8 + fixes * 3 * point, 14 * fixes * OPS_PER_PRODUCT
+        return args[3].shape[0] * args[2].shape[-1] * 3 * 8 + fixes * 3 * point, 12 * fixes * OPS_PER_PRODUCT
     if name == "padd_select_scan":  # 12 products an add, as the weighting's
         return args[1].shape[2] * args[1].shape[3] * (2 * point + 4), 12 * lane_scan_adds(args[2]) * OPS_PER_PRODUCT
     p = args[1]
     n = p.shape[-1]
-    if name == "padd":
-        return 3 * n * point, 14 * n * OPS_PER_PRODUCT
+    if name == "padd":  # 12 products an add, as the other split kernels'
+        return 3 * n * point, 12 * n * OPS_PER_PRODUCT
     if name == "pdouble":
         return 2 * n * point, 9 * args[2] * n * OPS_PER_PRODUCT
     if name == "padd_mixed_select2":
@@ -458,18 +461,45 @@ def seeded_scan(curve, W: int, G: int, T: int, seed: int, dev):
     return (curve, carry.to(dev), q[:2].reshape(2, L, W, N).to(dev), keep.to(dev), q_inf.to(dev))
 
 
-def seeded_fixup(curve, W: int, G: int, T: int, seed: int, dev):
-    """K3 fix-up arguments on the card: 17 buckets and W G inflows with
-    identity points, and sorted digits from a few values, so that segments
-    cross one lane or several."""
+def seeded_fixup(curve, W: int, G: int, T: int, seed: int, dev, NB: int = 17):
+    """K3 fix-up arguments on the card: NB buckets and W G inflows with
+    identity points, and sorted digits: at NB = 17 from a few values, so
+    that segments cross one lane or several (few lanes fix); above, uniform
+    in [0, NB), so that most lanes fix where NB < G T / 2."""
     import torch
 
-    NB = 17
     rng = np.random.default_rng(seed)
-    dig = torch.as_tensor(np.sort(rng.choice([0, 1, 4, 9, 10, 16], size=(W, G * T)), axis=-1))
+    vals = rng.choice([0, 1, 4, 9, 10, 16], size=(W, G * T)) if NB == 17 else rng.integers(0, NB, size=(W, G * T))
+    dig = torch.as_tensor(np.sort(vals, axis=-1))
     buckets = seeded_point_rows(curve, W * NB, seed, 6, True).reshape(3, L, W, NB)
     inflow = seeded_point_rows(curve, W * G, seed + 1, 5, True).reshape(3, L, W, G)
     return (curve, buckets.to(dev), inflow.to(dev), dig.to(dev))
+
+
+def seeded_pairs(curve, n: int, seed: int, dev):
+    """K3 padd arguments on the card: p, q (3, 22, n) seeded projective
+    points (random Z), lane i by i % 6: p the identity, q the identity,
+    both, q == p, q == -p (each q with its own Z), a random pair."""
+    import torch
+
+    from mina_bridge_tpu_torch.curves.host import mul
+    from mina_bridge_tpu_torch.fields import ffl
+
+    rng = np.random.default_rng(seed)
+    p = curve.base.p
+    base = [mul(curve, int(rng.integers(1, 1 << 62)), curve.generator) for _ in range(8)]
+    zs = [int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1 for _ in range(2 * n)]
+
+    def proj(pt, z, neg=False):
+        return (0, 1, 0) if pt is None else (pt[0] * z % p, (p - pt[1] if neg else pt[1]) * z % p, z)
+
+    ps, qs = [], []
+    for i in range(n):
+        a, b, kind = base[i % 8], base[(3 * i + 1) % 8], i % 6
+        ps.append(proj(None if kind in (0, 2) else a, zs[2 * i]))
+        qs.append(proj(None if kind in (1, 2) else (a if kind in (3, 4) else b), zs[2 * i + 1], kind == 4))
+    return tuple(torch.stack([ffl.from_ints(curve.base, [pt[c] for pt in pts]) for c in range(3)])
+                 .permute(0, 2, 1).contiguous().to(dev) for pts in (ps, qs))
 
 
 def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
@@ -485,10 +515,14 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
     set per curve at k = 1 and 13; the K6 scan, K3's weighting and fix-up
     and K5's repair the MSM's inputs, and per curve seeded ragged scans
     (W G = 111 and 90 lanes, T = 3 and 1), bucket arrays (W = 3, D = 64 and
-    4096; W = 1, D = 64), fix-ups (W G = 111, T = 3) and repairs (W = 3,
-    G = 16: one block a window; W = 2, G = 4096; W = 3, G = 64: clusters of
-    2; W = 1, G = 256: a cluster of 8 blocks of 32 lanes). Returns
-    {kernel: [argument tuples]} of the checked-only sets."""
+    4096; W = 1, D = 64), fix-ups (W G = 111, T = 3, few lanes fixing; W G
+    = 4 x 255 lanes (a ragged last block), T = 32, uniform digits over 513
+    buckets, most lanes fixing) and repairs (W = 3, G = 16: one block a
+    window; W = 2, G = 4096; W = 3, G = 64: clusters of 2; W = 1, G = 256:
+    a cluster of 8 blocks of 32 lanes); the one-step K3 add per curve at
+    1, 33, 4,097 and 20,480 lanes with identity lanes in p, in q and in
+    both, q == p and q == -p (seeded_pairs). Returns {kernel: [argument
+    tuples]} of the checked-only sets."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -531,21 +565,23 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
         k6 += [seeded_scan(curve, 3, 37, 3, seed + 10 + i, dev), seeded_scan(curve, 2, 45, 1, seed + 20 + i, dev)]
         k3w += [(curve, seeded_point_rows(curve, W * (D + 1), seed + 30 + i, 6, True).reshape(3, L, W, D + 1).to(dev))
                 for W, D in ((3, 64), (3, 4096), (1, 64))]
-        k3f.append(seeded_fixup(curve, 3, 37, 3, seed + 40 + i, dev))
+        k3f += [seeded_fixup(curve, 3, 37, 3, seed + 40 + i, dev),
+                seeded_fixup(curve, 4, 255, 32, seed + 45 + i, dev, NB=513)]
         flag_rng = np.random.default_rng(seed + 50 + i)
         for W, G in ((3, 16), (2, 4096), (3, 64), (1, 256)):
             x = p[..., : W * G].reshape(3, L, W, G) if W * G <= n else p.repeat(1, 1, 2).reshape(3, L, W, G)
             k5s.append((curve, x.contiguous(), torch.as_tensor(flag_rng.random((W, G)) < 0.2, device=dev)))
-    k7 = list(seeded)
+    k7, k3 = list(seeded), []
     for i, curve in enumerate((PALLAS, VESTA)):
         for n in (1, 33, 4097, 20480):
             p = seeded_point_rows(curve, n, seed + 60 + i, 7, True).to(dev)
             q = seeded_point_rows(curve, n, seed + 70 + i, 5, False).to(dev)
             keep = (torch.arange(n, device=dev) % 3 == 1).to(torch.int32)
             k7.append((curve, p, q, keep, (q[2, 0] == 0).to(torch.int32)))
+            k3.append((curve, *seeded_pairs(curve, n, seed + 90 + 2 * n + i, dev)))
     return {"transcript_blocks": k2, "padd_mixed_select": k7, "padd_select": seeded_k5, "pdouble": k4,
             "padd_mixed_select2": k6, "padd_weight_sum": k3w, "padd_fixup": k3f, "padd_select_scan": k5s,
-            "pow_const": k1_inputs(seed, dev)}
+            "pow_const": k1_inputs(seed, dev), "padd": k3}
 
 
 def k1_inputs(seed: int, dev) -> list:
@@ -574,16 +610,32 @@ def k1_inputs(seed: int, dev) -> list:
     return sets
 
 
-CHAINS = ("pdouble", "padd_mixed_select2", "padd_weight_sum", "padd_select_scan")
+CHAINS = ("padd", "pdouble", "padd_mixed_select2", "padd_weight_sum", "padd_select_scan")
+
+
+def above_2_256(rows) -> bool:
+    """Whether any value of (3, 22, ...) limb rows is 2^256 or more (a
+    conversion in then takes a second product, split::to_mont)."""
+    x = rows.reshape(3, L, -1).cpu()
+    acc, digits = 0, []
+    for limb in range(L):
+        acc = acc + x[:, limb]
+        digits.append(acc & 8191)
+        acc = acc >> 13
+    return bool(((digits[19] >> 9) | digits[20] | digits[21] | acc).ne(0).any())
 
 
 def dependent_products(name: str, args) -> int:
     """Products on the dependent chain of one launch (points.cuh: 3 a
-    doubling, a complete add or a mixed-add scan step), plus the conversion
-    in and out. K4: k doublings; the K6 scan: T = N / G steps; K3's
-    weighting: a chunk's run chain of S adds, the last tot add, log2 S
-    doublings, then an add and a doubling (ma) a tree level below the root
-    and one add at the root; K5's repair: one add a level, 2 log2 G levels."""
+    doubling, a complete add or a mixed-add scan step; 2 a split add),
+    plus the conversion in and out. K3's padd: one split add, its
+    conversion in 1 product (2 where a value is 2^256 or more); K4: k
+    doublings; the K6 scan: T = N / G steps; K3's weighting: a chunk's run
+    chain of S adds, the last tot add, log2 S doublings, then an add and a
+    doubling (ma) a tree level below the root and one add at the root; K5's
+    repair: one add a level, 2 log2 G levels."""
+    if name == "padd":
+        return 2 + 1 + 1 + int(above_2_256(args[1]) or above_2_256(args[2]))
     if name == "pdouble":
         return 3 * args[2] + 2
     if name == "padd_weight_sum":
@@ -725,6 +777,11 @@ def check_kernels(rec: Recorder, extra: dict, probe: dict, msm_scan=None, tips_r
                                          "product": "group2"}
             row["critical_path_floor_ms"] = floor
             row["critical_path_floor_ms_per_verify"] = sum(calls.get(k, 0) * k1_floor(a)[2] for k, a in timed.items())
+        if name == "padd_fixup":
+            from mina_bridge_tpu_torch.curves import point_kernels as pk
+
+            row["fixes"] = {"lanes": args[2].shape[2] * args[2].shape[3],
+                            "fixing": int(pk.fixup_need(args[3], args[2].shape[-1]).sum())}
         if name in ("padd_weight_sum", "padd_select_scan"):
             from mina_bridge_tpu_torch.curves import point_kernels as pk
 

@@ -128,6 +128,36 @@ void lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, int
   }
 }
 
+// padd_kernel and padd_fixup_kernel: the kernels' block programs
+// (split::padd_lanes, split::fixup_lanes) on the kernels' blocks of lanes
+// in turn, each phase's tasks in turn; with reverse, both last to first.
+template <class Fn>
+void lane_blocks(int64_t n, int lanes, bool reverse, Fn fn) {
+  const int64_t nb = (n + lanes - 1) / lanes;
+  for (int64_t i = 0; i < nb; i++) {
+    const int64_t b = reverse ? nb - 1 - i : i;
+    fn(b * lanes, (int)(n - b * lanes < lanes ? n - b * lanes : lanes));
+  }
+}
+
+template <int F>
+void padd_blocks(const int64_t* p, const int64_t* q, int64_t* out, int64_t n, bool reverse) {
+  using namespace pts::split;
+  std::vector<uint64_t> smem(words_of(pair_bytes(false)));
+  lane_blocks(n, PADD_LANES, reverse,
+              [&](int64_t n0, int m) { padd_lanes<F>(Serial{reverse}, smem.data(), p, q, out, n0, m, n); });
+}
+
+template <int F>
+void fixup_blocks(int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t W, int64_t G, int64_t T,
+                  int64_t NB, bool reverse) {
+  using namespace pts::split;
+  std::vector<uint64_t> smem(words_of(pair_bytes(true)));
+  lane_blocks(W * G, FIXUP_LANES, reverse, [&](int64_t l0, int m) {
+    fixup_lanes<F>(Serial{reverse}, smem.data(), buckets, inflow, dig, l0, m, W, G, T, NB);
+  });
+}
+
 bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
 
 // pow_group_kernel: each element's chain on the 2-lane product (its lanes
@@ -172,19 +202,27 @@ extern "C" int mbt_host_binop(int field, int op, const int64_t* a, const int64_t
   return field == 0 ? run<0>(op, a, b, out, n) : run<1>(op, a, b, out, n);
 }
 
-// The point formulas of K6, K4 and K3 on mul32, over rows layouts: p and
-// out (3, 22, n). op 0: p +mixed q with q (2, 22, n) affine (x, y) (K6's
-// add; q must not be the identity), 1: the doubling of p (K4's step), 2:
-// the complete add p + q with q (3, 22, n) (K3's).
+// The one-thread point formulas on mul32, over rows layouts: p and out
+// (3, 22, n). op 0: p +mixed q with q (2, 22, n) affine (x, y) (K6's add;
+// q must not be the identity), 1: the doubling of p (K4's step), 2: the
+// complete add p + q with q (3, 22, n) (the one-step K5's padd_f).
 extern "C" int mbt_host_points(int field, int op, const int64_t* p, const int64_t* q, int64_t* out,
                                int64_t n) {
   return field == 0 ? points<0>(op, p, q, out, n) : points<1>(op, p, q, out, n);
 }
 
+// K3's one-step add (points.cu, padd_kernel) with the kernel's arguments:
+// p, q, out (3, 22, n) rows; reverse: run the blocks and each phase's tasks
+// last to first.
+extern "C" int mbt_host_padd(int field, const int64_t* p, const int64_t* q, int64_t* out, int64_t n, int reverse) {
+  if (n < 0) return 1;
+  (field == 0 ? padd_blocks<0> : padd_blocks<1>)(p, q, out, n, reverse != 0);
+  return 0;
+}
+
 // The MSM phases of points.cu with their kernels' arguments (no scratch):
 // K3's bucket weighting, K3's fix-up (in place) and K5's lane repair;
-// reverse: run each phase's tasks of the weighting and the repair last to
-// first.
+// reverse: run each step's blocks and each phase's tasks last to first.
 extern "C" int mbt_host_weight_sum(int field, const int64_t* buckets, int64_t* out, int64_t W, int64_t D, int64_t K,
                                    int64_t C, int reverse) {
   if (W < 0 || !pow2(D) || !pow2(K) || !pow2(C) || K > D || C > K) return 1;
@@ -193,11 +231,9 @@ extern "C" int mbt_host_weight_sum(int field, const int64_t* buckets, int64_t* o
 }
 
 extern "C" int mbt_host_fixup(int field, int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t W,
-                              int64_t G, int64_t T, int64_t NB) {
+                              int64_t G, int64_t T, int64_t NB, int reverse) {
   if (W < 0 || G < 0 || T < 1 || NB < 1) return 1;
-  for (int64_t w = 0; w < W; w++)
-    for (int64_t g = 0; g < G; g++)
-      (field == 0 ? pts::fixup_lane<0, MUL> : pts::fixup_lane<1, MUL>)(buckets, inflow, dig, w, g, W, G, T, NB);
+  (field == 0 ? fixup_blocks<0> : fixup_blocks<1>)(buckets, inflow, dig, W, G, T, NB, reverse != 0);
   return 0;
 }
 

@@ -24,14 +24,19 @@
 // with the lane last, so thread n reads limb l of coordinate c at
 // (c * 22 + l) * N + n and a warp's loads are contiguous.
 //
-// K3 padd, K5 padd_select, K7: one add per lane and launch. Bound on this
-// card: bytes at wide shapes (11-14 products a lane, ~6-7 k 32-bit
-// multiply-adds, against 1-1.6 KB of int64 limbs in and out), launches at
-// the narrow ones. With one thread a lane (padd, padd_select) a wide
-// launch has ~1 warp a scheduler, and each thread's chain of ~25
-// products sets the time instead (PERF.md); K7 splits each lane over six
-// threads (points.cuh, k7): its conversions and its add run as a program
-// of six phases, one inlined mul32 for all its products.
+// K3 padd and the fix-up, K5 padd_select, K7: one add per lane and
+// launch. Bound on this card: bytes at wide shapes (11-14 products a lane,
+// ~6-7 k 32-bit multiply-adds, against 1-1.6 KB of int64 limbs in and
+// out), launches and the dependent path at the narrow ones (the Horner
+// walk's one lane). With one thread a lane (padd_select) a wide launch has
+// ~1 warp a scheduler, and each thread's chain of ~25 products sets the
+// time instead (PERF.md). So the others split each lane over threads:
+// K7 over six (points.cuh, k7: its conversions and its add as a program
+// of six phases, one inlined mul32 for all its products); padd and the
+// fix-up take up to 32 and 64 lanes a block (split::padd_lanes, fixup_lanes:
+// one thread a coordinate in and out, the add as one round of split ops,
+// six threads a lane, two products deep), and the fix-up's lanes that fix
+// no bucket are dead ops that load and store nothing.
 //
 // K4, K6 and the MSM phases are chains, and a chain is bound by the
 // latency of its instructions, not by bytes: K4 walks 13 doublings per
@@ -42,8 +47,8 @@
 // between levels) and runs in one launch instead of one launch a step. K4
 // and K6 take every product from one out-of-line fld::mul32 body (the
 // 32-bit carry-chain product, 1.43x faster than mul as a lone chain):
-// inlined, a scan step's ~20 products fill the instruction cache; K3 padd
-// and K5 padd_select take the same body. The weighting and the repair
+// inlined, a scan step's ~20 products fill the instruction cache; K5
+// padd_select takes the same body. The weighting and the repair
 // split each point op over threads (points.cuh, split: two products deep,
 // six threads an add), so a level costs two products' latency and a wide
 // level fills the SMs; the weighting loads a block's buckets with
@@ -74,13 +79,22 @@ constexpr int K7_LANES = 32, K7_THREADS = pts::k7::TASKS * K7_LANES, K7_MIN_BLOC
 
 unsigned blocks_for(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
+// The lanes of block b: lanes a block from b * lanes, fewer in the last.
+__device__ int block_lanes(int64_t n, int lanes, int64_t& first) {
+  first = (int64_t)blockIdx.x * lanes;
+  return n - first < lanes ? (int)(n - first) : lanes;
+}
+
+// K3, the one-step add (points.cuh: split::padd_lanes): `lanes` lanes a
+// block, the block's threads on the split add's tasks.
 template <int F>
-__global__ void padd_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
-                            int64_t* __restrict__ out, int64_t N) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  pts::store_pt<F, MUL>(pts::padd_f<F, MUL>(pts::load_pt<F, MUL>(p, n, N), pts::load_pt<F, MUL>(q, n, N)), out, n,
-                        N);
+__global__ void __launch_bounds__(split::THREADS, 2)
+    padd_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q, int64_t* __restrict__ out, int64_t N,
+                int lanes) {
+  extern __shared__ uint64_t smem[];
+  int64_t n0;
+  const int m = block_lanes(N, lanes, n0);
+  split::padd_lanes<F>(split::Threads{(int)threadIdx.x, (int)blockDim.x}, smem, p, q, out, n0, m, N);
 }
 
 template <int F>
@@ -152,15 +166,18 @@ __global__ void __launch_bounds__(split::THREADS, 2)
   split::weight_grid<F>(split::GridBlock{smem}, buckets, out, roots, W, D, K, C, split::NoStamp{});
 }
 
-// K3, the fix-up (points.cuh: fixup_lane): one thread per lane (w, g) of
-// the chunked scan, at most one add each, in place in buckets.
+// K3, the fix-up (points.cuh: split::fixup_lanes): `lanes` lanes (w, g)
+// of the chunked scan a block, at most one add each, in place in buckets.
 //   buckets: (3, 22, W, NB); inflow: (3, 22, W, G); dig: (W, G T) int64
 template <int F>
-__global__ void padd_fixup_kernel(int64_t* __restrict__ buckets, const int64_t* __restrict__ inflow,
-                                  const int64_t* __restrict__ dig, int64_t W, int64_t G, int64_t T, int64_t NB) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= W * G) return;
-  pts::fixup_lane<F, MUL>(buckets, inflow, dig, n / G, n % G, W, G, T, NB);
+__global__ void __launch_bounds__(split::THREADS, 2)
+    padd_fixup_kernel(int64_t* __restrict__ buckets, const int64_t* __restrict__ inflow,
+                      const int64_t* __restrict__ dig, int64_t W, int64_t G, int64_t T, int64_t NB, int lanes) {
+  extern __shared__ uint64_t smem[];
+  int64_t l0;
+  const int m = block_lanes(W * G, lanes, l0);
+  split::fixup_lanes<F>(split::Threads{(int)threadIdx.x, (int)blockDim.x}, smem, buckets, inflow, dig, l0, m, W, G,
+                        T, NB);
 }
 
 // K5, the lane repair (points.cuh: split::lane_scan): a cluster of CL
@@ -188,17 +205,46 @@ __global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
 
 }  // namespace
 
-// p, q, out: (3, 22, N) int64 rows. Each returns cudaGetLastError().
-extern "C" int mbt_padd(int field, const int64_t* p, const int64_t* q, int64_t* out, int64_t N,
-                        void* stream) {
+// The launch shape of K3's padd and fix-up over n lanes: up to `most`
+// lanes a block, six threads a lane rounded up to whole warps (one warp
+// at the Horner walk's one lane). scripts/torch_kernel_sweep.py --parts k3
+// took 32 lanes a block for padd (faster than 64 and 16 at 4,097 and
+// 20,480 lanes) and 64 for the fix-up (faster than 32 and 16 at the 2^16
+// MSM's shape); at one lane 32, 64 and 384 threads take the same time
+// (PERF.md).
+struct LaneShape {
+  int lanes, threads;
+};
+
+static LaneShape lane_shape(int64_t n, int most) {
+  const int lanes = n < most ? (int)n : most;
+  return {lanes, (6 * lanes + 31) / 32 * 32};
+}
+
+static bool shape_ok(const LaneShape& sh) {
+  return sh.lanes >= 1 && sh.lanes <= split::JOBS && sh.threads >= 1 && sh.threads <= split::THREADS;
+}
+
+// K3's padd at a given shape: `lanes` lanes a block of `threads` threads.
+extern "C" int mbt_padd_at(int field, const int64_t* p, const int64_t* q, int64_t* out, int64_t N, int lanes,
+                           int threads, void* stream) {
+  const LaneShape sh = {lanes, threads};
+  if (N < 0 || !shape_ok(sh)) return (int)cudaErrorInvalidValue;
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+    const size_t smem = split::pair_bytes(false);  // 37,120 bytes
     if (field == 0)
-      padd_kernel<0><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, out, N);
+      padd_kernel<0><<<blocks_for(N, lanes), threads, smem, s>>>(p, q, out, N, lanes);
     else
-      padd_kernel<1><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, out, N);
+      padd_kernel<1><<<blocks_for(N, lanes), threads, smem, s>>>(p, q, out, N, lanes);
   }
   return (int)cudaGetLastError();
+}
+
+// p, q, out: (3, 22, N) int64 rows. Each returns cudaGetLastError().
+extern "C" int mbt_padd(int field, const int64_t* p, const int64_t* q, int64_t* out, int64_t N, void* stream) {
+  const LaneShape sh = lane_shape(N > 0 ? N : 1, split::PADD_LANES);
+  return mbt_padd_at(field, p, q, out, N, sh.lanes, sh.threads, stream);
 }
 
 // k >= 1 doublings of each lane.
@@ -317,20 +363,28 @@ extern "C" int mbt_padd_weight_sum(int field, const int64_t* buckets, int64_t* o
   return (int)cudaGetLastError();
 }
 
+// K3's fix-up at a given shape: `lanes` lanes a block of `threads` threads.
+extern "C" int mbt_padd_fixup_at(int field, int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t W,
+                                 int64_t G, int64_t T, int64_t NB, int lanes, int threads, void* stream) {
+  if (W < 0 || G < 0 || T < 1 || NB < 1 || !shape_ok({lanes, threads})) return (int)cudaErrorInvalidValue;
+  const int64_t n = W * G;
+  if (n > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t smem = split::pair_bytes(true);  // 37,632 bytes
+    if (field == 0)
+      padd_fixup_kernel<0><<<blocks_for(n, lanes), threads, smem, s>>>(buckets, inflow, dig, W, G, T, NB, lanes);
+    else
+      padd_fixup_kernel<1><<<blocks_for(n, lanes), threads, smem, s>>>(buckets, inflow, dig, W, G, T, NB, lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
 // K3's fix-up, in place. buckets: (3, 22, W, NB); inflow: (3, 22, W, G);
 // dig: (W, G * T) int64, each digit in [0, NB).
 extern "C" int mbt_padd_fixup(int field, int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t W,
                               int64_t G, int64_t T, int64_t NB, void* stream) {
-  if (W < 0 || G < 0 || T < 1 || NB < 1) return (int)cudaErrorInvalidValue;
-  const int64_t lanes = W * G;
-  if (lanes > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (field == 0)
-      padd_fixup_kernel<0><<<blocks_for(lanes, THREADS), THREADS, 0, s>>>(buckets, inflow, dig, W, G, T, NB);
-    else
-      padd_fixup_kernel<1><<<blocks_for(lanes, THREADS), THREADS, 0, s>>>(buckets, inflow, dig, W, G, T, NB);
-  }
-  return (int)cudaGetLastError();
+  const LaneShape sh = lane_shape(W > 0 && G > 0 ? W * G : 1, split::FIXUP_LANES);
+  return mbt_padd_fixup_at(field, buckets, inflow, dig, W, G, T, NB, sh.lanes, sh.threads, stream);
 }
 
 // K5's lane repair: its launch's shared memory (the lanes' points unless

@@ -9,13 +9,13 @@
 // way. K7 runs the mixed add as a program of field operations (k7 below),
 // with one inlined mul32 for all of its products.
 //
-// Below the formulas are the MSM's three one-launch phases: the bucket
-// weighting of K3 and the lane scan of K5 as programs of split point
-// operations (namespace split: each add and doubling over several
-// threads, phases between block barriers), and K3's fix-up as one thread
-// a lane. points.cu runs them in its kernels; field_host.cpp runs the same
-// code with every phase's tasks in turn (split::Serial), so the CPU tests
-// check their index arithmetic and that no phase's tasks race.
+// Below the formulas are K3's one-step add and the MSM's three one-launch
+// phases (K3's bucket weighting and fix-up, K5's lane scan) as programs of
+// split point operations (namespace split: each add and doubling over
+// several threads, phases between block barriers). points.cu runs them in
+// its kernels; field_host.cpp runs the same code with every phase's tasks
+// in turn (split::Serial), so the CPU tests check their index arithmetic
+// and that no phase's tasks race.
 #pragma once
 #include <stddef.h>
 
@@ -173,8 +173,9 @@ PHD Pt identity() {
 }
 
 // ---------------------------------------------------------------------------
-// Split point operations: the MSM's bucket weighting (K3) and lane repair
-// (K5) run every complete add and doubling over several threads.
+// Split point operations: K3's one-step add, the MSM's bucket weighting
+// and fix-up (K3) and its lane repair (K5) run every complete add and
+// doubling over several threads.
 //
 // Points and temporaries sit in shared memory as Montgomery words (Vec).
 // A round of operations (Op: p + q or 2 p, each on points of a Vec) runs
@@ -709,6 +710,92 @@ PHD Work block_work(uint64_t* smem, size_t words) {
   return {{tmp, JOBS}, reinterpret_cast<int*>(tmp + 4 * TMP_SLOTS * JOBS)};
 }
 
+// ---------------------------------------------------------------------------
+// K3's one-step add (padd) and the MSM's fix-up (padd_fixup): a block takes
+// m <= JOBS consecutive lanes (PADD_LANES, FIXUP_LANES), one add a lane, as
+// one round of split ops on the lanes' two points (item i of a Vec: p in
+// slots 0-2, q in 3-5), loaded as Montgomery words and stored as canonical
+// limbs one thread a (coordinate, lane); consecutive threads take
+// consecutive lanes, so a wide launch loads and stores coalesced. At one
+// lane the dependent path is a conversion in, two levels of products and a
+// conversion out.
+//
+// The fix-up: lane l = w G + g of the chunked scan owns positions
+// [g T, (g + 1) T) of window w's sorted digits dig (W, G T). The bucket d
+// whose segment holds position g T needs the lane's inflow iff the
+// segment began in an earlier lane (the digit at g T - 1 is d) and ends in
+// this one (g is the window's last lane, or the digit at (g + 1) T is not
+// d); then bucket = bucket + inflow, in place in buckets (3, 22, W, NB).
+// A segment of sorted digits has one last position, so a bucket has at
+// most one fixing lane: the lanes' in-place writes never meet, whatever
+// the order of blocks (the host build's test checks that no bucket is
+// fixed twice).
+// ---------------------------------------------------------------------------
+constexpr int PAIR_SLOTS = 2 * PT_SLOTS;
+
+// A block's shared memory: JOBS lanes' two points, the round scratch, and
+// (the fix-up) JOBS bucket indexes.
+constexpr size_t pair_bytes(bool fixup) { return block_bytes(PAIR_SLOTS, JOBS, fixup ? 2 * JOBS : 0); }
+
+// Lanes a block of padd and of the fix-up (points.cu, lane_shape: the
+// faster shapes of scripts/torch_kernel_sweep.py --parts k3).
+constexpr int PADD_LANES = 32, FIXUP_LANES = JOBS;
+
+// The lanes' points, the round scratch after them.
+PHD Vec pair_items(uint64_t* smem) { return {smem, JOBS}; }
+PHD Work pair_work(uint64_t* smem) { return block_work(smem, (size_t)4 * PAIR_SLOTS * JOBS); }
+
+// p + q over lanes n0 .. n0 + m - 1 of (3, 22, N) rows; out the same.
+template <int F, class E>
+PHD void padd_lanes(const E& ex, uint64_t* smem, const int64_t* p, const int64_t* q, int64_t* out, int64_t n0, int m,
+                    int64_t N) {
+  const Vec v = pair_items(smem);
+  const int64_t cs = (int64_t)fld::REP_LIMBS * N;
+  ex.tasks(PAIR_SLOTS * m, [&](int t) {
+    const int i = t % m, k = t / m;
+    v.put(k, i, to_mont<F>((k < PT_SLOTS ? p + k * cs : q + (k - PT_SLOTS) * cs) + n0 + i, N));
+  });
+  ex.sync();
+  run<F, false>(
+      ex, pair_work(smem), m, [&](int o) { return Op{ADD, PRef{v, 0, o}, PRef{v, PT_SLOTS, o}, true}; },
+      [&](int o, int c, const Fe& r) { fld::to_limbs<F, fld::MUL32_CALL>(r, out + c * cs + n0 + o, N); });
+}
+
+// The bucket that lane (w, g) fixes, as its index w NB + d among the W NB,
+// or -1 if it fixes none.
+PHD int64_t fix_bucket(const int64_t* dig, int64_t w, int64_t g, int64_t G, int64_t T, int64_t NB) {
+  if (g == 0) return -1;
+  const int64_t* dw = dig + w * G * T;
+  const int64_t p0 = g * T, d = dw[p0];
+  if (dw[p0 - 1] != d || (g + 1 < G && dw[p0 + T] == d) || d < 0 || d >= NB) return -1;
+  return w * NB + d;
+}
+
+// The fix-up of lanes l0 .. l0 + m - 1 of the W G: a dead op where a lane
+// fixes no bucket, which loads and stores nothing.
+template <int F, class E>
+PHD void fixup_lanes(const E& ex, uint64_t* smem, int64_t* buckets, const int64_t* inflow, const int64_t* dig,
+                     int64_t l0, int m, int64_t W, int64_t G, int64_t T, int64_t NB) {
+  const Vec v = pair_items(smem);
+  const Work wk = pair_work(smem);
+  int64_t* at = reinterpret_cast<int64_t*>(wk.live + JOBS);  // 8-byte aligned: JOBS is even
+  const int64_t nb = W * NB, lanes = W * G, bs = (int64_t)fld::REP_LIMBS * nb, is = (int64_t)fld::REP_LIMBS * lanes;
+  ex.tasks(m, [&](int i) { at[i] = fix_bucket(dig, (l0 + i) / G, (l0 + i) % G, G, T, NB); });
+  ex.sync();
+  ex.tasks(PAIR_SLOTS * m, [&](int t) {
+    const int i = t % m, k = t / m;
+    if (at[i] < 0) return;
+    v.put(k, i, k < PT_SLOTS ? to_mont<F>(buckets + k * bs + at[i], nb)
+                             : to_mont<F>(inflow + (k - PT_SLOTS) * is + l0 + i, lanes));
+  });
+  ex.sync();
+  run<F, true>(
+      ex, wk, m, [&](int o) { return Op{ADD, PRef{v, 0, o}, PRef{v, PT_SLOTS, o}, at[o] >= 0}; },
+      [&](int o, int c, const Fe& r) {
+        if (at[o] >= 0) fld::to_limbs<F, fld::MUL32_CALL>(r, buckets + c * bs + at[o], nb);
+      });
+}
+
 // A block's program marks the start of unit u (stamp(-1, u)) and the end
 // of each of its steps (stamp(k, u)), all its threads after a barrier; the
 // kernels on the path and the host build take NoStamp,
@@ -941,25 +1028,6 @@ struct ClusterBlock {
 #endif
 
 }  // namespace split
-
-// ---------------------------------------------------------------------------
-// K3, the fix-up: lane (w, g) of the chunked scan owns positions
-// [g T, (g + 1) T) of window w's sorted digits dig (W, G T). The bucket
-// whose segment holds position g T needs the lane's inflow iff the segment
-// began in an earlier lane and ends in this one; then
-// bucket = bucket + inflow, in place in buckets (3, 22, W, NB).
-// ---------------------------------------------------------------------------
-template <int F, int P>
-PHD void fixup_lane(int64_t* buckets, const int64_t* inflow, const int64_t* dig, int64_t w, int64_t g,
-                    int64_t W, int64_t G, int64_t T, int64_t NB) {
-  if (g == 0) return;
-  const int64_t* dw = dig + w * G * T;
-  const int64_t p0 = g * T, d = dw[p0];
-  if (dw[p0 - 1] != d || (g + 1 < G && dw[p0 + T] == d) || d < 0 || d >= NB) return;
-  const int64_t idx = w * NB + d, nb = W * NB;
-  const Pt sum = padd_f<F, P>(load_pt<F, P>(buckets, idx, nb), load_pt<F, P>(inflow, w * G + g, W * G));
-  store_pt<F, P>(sum, buckets, idx, nb);
-}
 
 // ---------------------------------------------------------------------------
 // K7: keep_q ? q : (q_inf ? p : p +mixed q), q's Z row 0 or 1.

@@ -3,9 +3,9 @@
 Counterpart of mina_bridge_tpu/curves/pallas_kernels.py (padd, pdouble,
 padd_select, padd_mixed_select2, padd_mixed_select, all through
 `_pallas_apply`). The CUDA kernels are in csrc/points.cu, bounds-checked
-(see the note there on what bounds them): one thread per lane, or (K7,
-the bucket weighting and the lane repair) each point op split over
-several threads.
+(see the note there on what bounds them): one thread per lane (K4, the K6
+scan, the one-step K5), or (K3's add, weighting and fix-up, K5's lane
+repair, K7) each point op split over several threads.
 
 A point batch is (3, 22, N) int64: coordinates, limbs, lanes. K6's q is
 (2, 22, N) (x, y) with Z = 1 - q_inf; K7's q is (3, 22, N) with a Z row of

@@ -18,15 +18,18 @@ chiprun_out/compare_trees.jsonl. Needs one CUDA card.
 With --kernels it times kernels alone instead, through the tree's own
 wrappers, on inputs that both trees take: K1 (`pow_const_rows`, e = p - 2
 in the scalar field, as the verify's inversions) at 160 and 512 elements;
-K7 (`padd_mixed_select`) at 20,480 lanes; K3's bucket weighting
-(`padd_weight_sum`, W 20, D 4,096) and K5's lane repair
+K7 (`padd_mixed_select`) at 20,480 lanes; K3's one-step add (`padd`) at
+one lane (the Horner walk's) and 4,097 lanes of seeded canonical limbs;
+K3's bucket weighting (`padd_weight_sum`, W 20, D 4,096), K3's fix-up
+(`padd_fixup`, W 20, G 1,024, T 68, in place) and K5's lane repair
 (`padd_select_scan`, W 20, G 1,024) on the inputs one MSM over the 2^16
 Pallas SRS gives them (seeded scalars, recorded through this checkout's
-pmsm) and on seeded canonical limbs on each curve (the repair's flags set
-at a fifth of the lanes). Each of `reps` runs is a CUDA-event mean over 20
-launches, queued while the device sleeps (~25 ms), so that the events
-time the device and not the host's queueing; the outputs are checked
-exact against the plain versions first.
+pmsm), and the weighting and the repair on seeded canonical limbs on
+each curve (the repair's flags set at a fifth of the lanes). Each of
+`reps` runs is a CUDA-event mean over 20 launches, queued while the
+device sleeps (~25 ms), so that the events time the device and not the
+host's queueing; the outputs are checked exact against the plain
+versions first.
 """
 
 from __future__ import annotations
@@ -159,8 +162,8 @@ def canonical_rows(rng, shape: tuple, dev) -> "torch.Tensor":
 
 
 def msm_phase_inputs(points, seed: int) -> dict:
-    """The weighting's and the repair's arguments in one pmsm.msm over
-    `points` with seeded scalars."""
+    """The weighting's, the fix-up's and the repair's arguments in one
+    pmsm.msm over `points` with seeded scalars (copied before the call)."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -174,7 +177,7 @@ def msm_phase_inputs(points, seed: int) -> dict:
         device=points.device,
     )
     seen, orig = {}, {}
-    for name in ("padd_weight_sum", "padd_select_scan"):
+    for name in ("padd_weight_sum", "padd_fixup", "padd_select_scan"):
         orig[name] = getattr(pk, name)
 
         def spy(*a, _name=name):
@@ -191,9 +194,10 @@ def msm_phase_inputs(points, seed: int) -> dict:
 
 
 def time_kernels(reps: int, seed: int, points) -> dict:
-    """K1 at 160 and 512 elements, K7 at 20,480 lanes, K3's weighting and
-    K5's repair at the MSM's shapes: median, min and max of `reps`
-    CUDA-event means of 20 launches each."""
+    """K1 at 160 and 512 elements, K7 at 20,480 lanes, K3's one-step add at
+    1 and 4,097 lanes, K3's weighting and fix-up and K5's repair at the
+    MSM's shapes: median, min and max of `reps` CUDA-event means of 20
+    launches each."""
     import torch
 
     from mina_bridge_tpu_torch.curves import point_kernels as pk
@@ -244,6 +248,11 @@ def time_kernels(reps: int, seed: int, points) -> dict:
     if not same(PALLAS.base, got.permute(0, 2, 1), want.permute(0, 2, 1)):
         raise RuntimeError("K7 disagrees with its plain version at 20,480 lanes")
     out["k7_20480_ms"] = stats(lambda: pk.padd_mixed_select(PALLAS, p, q, keep, q_inf))
+    for n in (1, 4097):
+        p, q = canonical_rows(rng, (n,), "cuda"), canonical_rows(rng, (n,), "cuda")
+        if not same_rows(PALLAS.base, pk.padd(PALLAS, p, q), pk.padd_plain(PALLAS, p, q)):
+            raise RuntimeError(f"K3's padd disagrees with its plain version at {n} lanes")
+        out[f"k3a_{n}_ms"] = stats(lambda p=p, q=q: pk.padd(PALLAS, p, q))
 
     W, D, G = 20, 4096, 1024
     msm = msm_phase_inputs(points, seed)
@@ -256,11 +265,15 @@ def time_kernels(reps: int, seed: int, points) -> dict:
         sets[f"k3b_{tag}_ms"] = ("padd_weight_sum", (curve, canonical_rows(rng, (W, D + 1), "cuda")))
         flags = torch.as_tensor(rng.random((W, G)) < 0.2, device="cuda").to(torch.int32)
         sets[f"k5a_{tag}_ms"] = ("padd_select_scan", (curve, canonical_rows(rng, (W, G), "cuda"), flags))
+    fix = msm["padd_fixup"]
+    sets["k3c_msm_ms"] = ("padd_fixup", fix)
     for key, (name, args) in sets.items():
         kern, plain = getattr(pk, name), getattr(pk, name + "_plain")
-        if not same_rows(args[0].base, kern(*args), plain(*args)):
+        fresh = (args[0], args[1].clone(), *args[2:])  # the fix-up works in place
+        if not same_rows(args[0].base, kern(*fresh), plain(args[0], args[1].clone(), *args[2:])):
             raise RuntimeError(f"{name} disagrees with its plain version ({key})")
         out[key] = stats(lambda kern=kern, args=args: kern(*args))
+    out["k3c_msm_fixes"] = int(pk.fixup_need(fix[3], fix[2].shape[-1]).sum())
     if hasattr(pk, "split_launch_info"):
         out["launch"] = {name: pk.split_launch_info(name, W, n) for name, n in
                          (("padd_weight_sum", D), ("padd_select_scan", G))}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Sweep K1 (the power chain) and K7 (the mixed add with select) on one card.
+"""Sweep K1 (the power chain), K7 (the mixed add with select) and K3's
+split adds on one card.
 
-    python3 scripts/torch_kernel_sweep.py [--parts k1,k7,k7inputs] [--reps 20]
+    python3 scripts/torch_kernel_sweep.py [--parts k1,k7,k7inputs,k3] [--reps 20]
 
 k1: K1 at the verify's two batch sizes (160 and 512 elements) and
 e = p - 2 in each field: csrc/k1_sweep.cu for every window width w in 3,
@@ -27,6 +28,20 @@ function).
 k7inputs: K7 at 20,480 lanes on inputs of five kinds (random limbs with
 random, no or all keep_q masks; seeded curve points; p the identity in
 every lane), to show whether its time depends on the data.
+
+k3: the launch shape of K3's split adds (points.cu, `mbt_padd_at` and
+`mbt_padd_fixup_at`: lanes a block, threads a block): the one-step
+`padd` at one lane (the Horner walk's) on one warp, two warps and a
+whole block of 384 threads, and at 4,097 and 20,480 lanes with 64, 32
+and 16 lanes a block (six threads a lane); the fix-up at the 2^16 MSM's shape (W 20,
+G 1,024, T 68, 4,097 buckets a window, uniform digits: most lanes fix)
+at 64, 32 and 16 lanes a block. The wrappers' own shape is timed too,
+and, to split the fix-up's time, the wrappers on inputs of three more
+kinds at its 20,480 lanes: `padd` on all of them (no digits, every load
+and store coalesced), the fix-up with every digit distinct (no lane
+fixes: the digit reads alone) and with lane g fixing bucket g of G + 1
+(every lane fixes, bucket loads and stores coalesced). Each shape and
+input is checked exact against the plain version on both curves first.
 
 Times are CUDA-event means over `reps` launches, queued while the device
 sleeps, so they time the device and not the host's queueing. Prints one
@@ -164,6 +179,93 @@ def sweep_k7(reps: int, card: str, emit) -> None:
                     cuda_ms(lambda: part(PALLAS, args, out, kind, prod, threads), reps))
 
 
+def sweep_k3(reps: int, card: str, emit) -> None:
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+    from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.chain_kernel import field_id
+
+    lib = kernels.lib("points")
+
+    def canon(c, rows):
+        return ffl.canon(c.base, rows.reshape(3, 22, -1).permute(0, 2, 1))
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+
+    def padd_at(c, p, q, out, lanes, threads):
+        check(lib.mbt_padd_at(field_id(c.base), p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[-1], lanes,
+                              threads, kernels.stream()))
+
+    def fixup_at(c, args, lanes, threads):
+        buckets, inflow, dig = args
+        W, NB = buckets.shape[2:]
+        G = inflow.shape[-1]
+        check(lib.mbt_padd_fixup_at(field_id(c.base), buckets.data_ptr(), inflow.data_ptr(), dig.data_ptr(), W, G,
+                                    dig.shape[-1] // G, NB, lanes, threads, kernels.stream()))
+
+    def row(kernel, n, lanes, threads, ms):
+        emit({"kernel": kernel, "lanes": n, "lanes_per_block": lanes, "threads": threads, "ms": ms, "exact": True,
+              "card": card})
+
+    wide = ((64, 384), (32, 192), (16, 96))
+    for n, shapes in ((1, ((1, 32), (1, 64), (1, 384))), (4097, wide), (20480, wide)):
+        pq = {c.name: (point_rows(c, n, 3 + n, 7, True).cuda(), point_rows(c, n, 4 + n, 5, True).cuda())
+              for c in (PALLAS, VESTA)}
+        out = torch.empty((3, 22, n), dtype=torch.int64, device="cuda")
+        for lanes, threads in shapes:
+            for c in (PALLAS, VESTA):
+                p, q = pq[c.name]
+                padd_at(c, p, q, out, lanes, threads)
+                if not torch.equal(canon(c, out), canon(c, pk.padd_plain(c, p, q))):
+                    raise RuntimeError(f"padd at {lanes} lanes x {threads} threads disagrees on {c.name}")
+            p, q = pq[PALLAS.name]
+            row("padd", n, lanes, threads, cuda_ms(lambda: padd_at(PALLAS, p, q, out, lanes, threads), reps))
+        p, q = pq[PALLAS.name]
+        row("padd (wrapper)", n, None, None, cuda_ms(lambda: pk.padd(PALLAS, p, q), reps))
+
+    W, G, T, NB = 20, 1024, 68, 4097
+    rng = np.random.default_rng(5)
+    dig = torch.as_tensor(np.sort(rng.integers(0, NB, size=(W, G * T)), axis=-1)).cuda()
+    fix = {c.name: (point_rows(c, W * NB, 6, 6, True).reshape(3, 22, W, NB).cuda(),
+                    point_rows(c, W * G, 7, 5, True).reshape(3, 22, W, G).cuda(), dig) for c in (PALLAS, VESTA)}
+    for lanes in (64, 32, 16):
+        for c in (PALLAS, VESTA):
+            buckets, inflow, _ = fix[c.name]
+            got = buckets.clone()
+            fixup_at(c, (got, inflow, dig), lanes, 6 * lanes)
+            if not torch.equal(canon(c, got), canon(c, pk.padd_fixup_plain(c, buckets.clone(), inflow, dig))):
+                raise RuntimeError(f"padd_fixup at {lanes} lanes a block disagrees on {c.name}")
+        args = fix[PALLAS.name]
+        row("padd_fixup", W * G, lanes, 6 * lanes, cuda_ms(lambda: fixup_at(PALLAS, args, lanes, 6 * lanes), reps))
+    row("padd_fixup (wrapper)", W * G, None, None, cuda_ms(lambda: pk.padd_fixup(PALLAS, *args), reps))
+    emit({"kernel": "padd_fixup", "fixes": int(pk.fixup_need(dig, G).sum()), "lanes": W * G, "card": card})
+
+    inflow = fix[PALLAS.name][1]
+    flat = inflow.reshape(3, 22, W * G).contiguous()
+    p = fix[PALLAS.name][0][..., :G].reshape(3, 22, W * G).contiguous()
+    if not torch.equal(canon(PALLAS, pk.padd(PALLAS, p, flat)), canon(PALLAS, pk.padd_plain(PALLAS, p, flat))):
+        raise RuntimeError("padd disagrees at 20,480 lanes")
+    row("padd (wrapper), the fix-up's lanes", W * G, None, None, cuda_ms(lambda: pk.padd(PALLAS, p, flat), reps))
+    pos = torch.arange(G * T, device="cuda")
+    kinds = {
+        "no lane fixes (distinct digits)": (pos.expand(W, G * T).contiguous(), 17),  # no bucket is read
+        "lane g fixes bucket g (coalesced)": ((pos // T + (pos % T >= T // 2)).expand(W, G * T).contiguous(), G + 1),
+    }
+    for label, (d, nb) in kinds.items():
+        buckets = point_rows(PALLAS, W * nb, 8, 6, True).reshape(3, 22, W, nb).cuda()
+        got = pk.padd_fixup(PALLAS, buckets.clone(), inflow, d)
+        if not torch.equal(canon(PALLAS, got), canon(PALLAS, pk.padd_fixup_plain(PALLAS, buckets.clone(), inflow, d))):
+            raise RuntimeError(f"padd_fixup disagrees ({label})")
+        emit({"kernel": "padd_fixup (wrapper)", "input": label, "lanes": W * G, "buckets": W * nb,
+              "fixes": int(pk.fixup_need(d, G).sum()), "card": card,
+              "ms": cuda_ms(lambda: pk.padd_fixup(PALLAS, buckets, inflow, d), reps)})
+
+
 def point_rows(curve, n: int, seed: int, identity_every: int, projective: bool):
     """(3, 22, n) rows of 8 seeded multiples of the generator (canonical
     limbs), scaled by a random Z or with Z = 1, the identity every few lanes."""
@@ -277,7 +379,7 @@ def sweep_k1(reps: int, card: str, emit, fields=("fp", "fq")) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="k1,k7")
+    ap.add_argument("--parts", default="k1,k7,k3")
     ap.add_argument("--fields", default="fp,fq", help="K1's fields")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -293,20 +395,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    kernels.build_all(tuple(kernels.SOURCES))
+    parts = args.parts.split(",")
+    need = {"k1": ("pow_chain", "k1_sweep"), "k7": ("points", "k7_split"), "k7inputs": ("points",), "k3": ("points",)}
+    kernels.build_all(tuple({s for part in parts for s in need[part]}))
     results = []
 
     def emit(row):
         results.append(row)
         print(json.dumps(row), flush=True)
 
-    parts = args.parts.split(",")
     if "k1" in parts:
         sweep_k1(args.reps, card, emit, args.fields.split(","))
     if "k7" in parts:
         sweep_k7(args.reps, card, emit)
     if "k7inputs" in parts:
         sweep_k7_inputs(args.reps, card, emit)
+    if "k3" in parts:
+        sweep_k3(args.reps, card, emit)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_sweep.json").write_text(json.dumps(results, indent=1))

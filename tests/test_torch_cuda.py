@@ -132,6 +132,40 @@ def test_point_kernels(dev, curve):
         assert torch.equal(a, b)
 
 
+def _pairs(curve, n, seed):
+    """p, q (3, 22, n) of seeded projective points, lane i by i % 6: p the
+    identity, q the identity, both, q == p, q == -p (q with its own Z), a
+    random pair."""
+    rng = np.random.default_rng(seed)
+    p = curve.base.p
+    base = [mul(curve, int(rng.integers(1, 1 << 62)), curve.generator) for _ in range(8)]
+
+    def proj(pt, neg=False):
+        z = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+        return (0, 1, 0) if pt is None else (pt[0] * z % p, (p - pt[1] if neg else pt[1]) * z % p, z)
+
+    ps, qs = [], []
+    for i in range(n):
+        a, b, kind = base[i % 8], base[(3 * i + 1) % 8], i % 6
+        ps.append(proj(None if kind in (0, 2) else a))
+        qs.append(proj(None if kind in (1, 2) else (a if kind in (3, 4) else b), kind == 4))
+    return tuple(torch.stack([ffl.from_ints(curve.base, [pt[c] for pt in pts], "cpu") for c in range(3)])
+                 .permute(0, 2, 1).contiguous() for pts in (ps, qs))
+
+
+@pytest.mark.parametrize("n", [1, 33, 4097, 20480])
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_padd(dev, curve, n):
+    """K3's one-step add (32 lanes a block, each add split over six
+    threads) at one lane (the Horner walk's), a partial block, a ragged
+    last block and the MSM's 20,480 lanes, with identity lanes in p, in q
+    and in both, q == p and q == -p."""
+    p, q = (x.to(dev) for x in _pairs(curve, n, 40 + n))
+    got = pk.padd(curve, p, q)
+    assert torch.equal(ffl.canon(curve.base, got.permute(0, 2, 1)),
+                       ffl.canon(curve.base, pk.padd_plain(curve, p, q).permute(0, 2, 1)))
+
+
 @pytest.mark.parametrize("n", [1, 33, 4097, 20480])
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
 def test_padd_mixed_select(dev, curve, n):
@@ -209,6 +243,28 @@ def test_fixup(dev, curve):
     assert pk.padd_fixup(curve, got, inflow, dig) is got
     assert not _same(curve, want, buckets)
     assert _same(curve, got, want)
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_fixup_dense(dev, curve):
+    """K3's fix-up with uniform digits, segments of ~16 positions over
+    lanes of T = 32, so that most of the W G = 4 x 255 lanes fix (a ragged
+    last block of 64 lanes); in place, and no bucket but the fixed ones
+    written."""
+    W, G, T, NB = 4, 255, 32, 513
+    dig = torch.as_tensor(np.sort(np.random.default_rng(17).integers(0, NB, size=(W, G * T)), axis=-1)).to(dev)
+    need = pk.fixup_need(dig, G)
+    assert int(need.sum()) > 0.8 * W * G
+    buckets = _rows(curve, W * NB, 18, identity_every=6).reshape(3, 22, W, NB).to(dev)
+    inflow = _rows(curve, W * G, 19, identity_every=5).reshape(3, 22, W, G).to(dev)
+    want = pk.padd_fixup_plain(curve, buckets.clone(), inflow, dig)
+    got = buckets.clone()
+    assert pk.padd_fixup(curve, got, inflow, dig) is got
+    assert _same(curve, got, want)
+    w_idx, g_idx = need.nonzero(as_tuple=True)
+    fixed = set((w_idx * NB + dig[:, ::T][w_idx, g_idx]).tolist())
+    changed = (got != buckets).reshape(3 * 22, W * NB).any(0).nonzero().flatten().tolist()
+    assert set(changed) <= fixed
 
 
 @pytest.mark.parametrize("G", [2, 16, 64, 256, 1024, 4096, 16384, 32768])

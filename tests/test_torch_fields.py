@@ -167,9 +167,10 @@ def field_host_lib(tmp_path_factory):
     lib.mbt_host_points.restype = ctypes.c_int
     I64 = ctypes.c_int64
     lib.mbt_host_weight_sum.argtypes = [ctypes.c_int, V, V, I64, I64, I64, I64, ctypes.c_int]
-    lib.mbt_host_fixup.argtypes = [ctypes.c_int, V, V, V, I64, I64, I64, I64]
+    lib.mbt_host_fixup.argtypes = [ctypes.c_int, V, V, V, I64, I64, I64, I64, ctypes.c_int]
     lib.mbt_host_lane_scan.argtypes = [ctypes.c_int, V, V, V, I64, I64, ctypes.c_int]
-    for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan):
+    lib.mbt_host_padd.argtypes = [ctypes.c_int, V, V, V, I64, ctypes.c_int]
+    for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan, lib.mbt_host_padd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -244,9 +245,9 @@ def test_kernel_field_library_host_build(field_host_lib, fid, spec):
             assert canon_ints(spec, out) == want, op
             assert np.array_equal(ffl.canon(spec, out).numpy(), ffl.canon(spec, fn(u, v)).numpy()), op
 
-    # K6's mixed add (points op 0), K4's doubling (op 1) and K3's complete
-    # add (op 2, q projective: p's lanes reversed) on mul32, on projective p
-    # with an identity lane and affine q.
+    # K6's mixed add (points op 0), K4's doubling (op 1) and the one-thread
+    # complete add (op 2, the one-step K5's; q projective: p's lanes
+    # reversed) on mul32, on projective p with an identity lane and affine q.
     curve = (PALLAS, VESTA)[fid]
     prng = random.Random(fid)
     n = 12
@@ -374,7 +375,10 @@ def test_msm_phases_host_build(field_host_lib, fid):
     blocks (K >= 32) and on one block a window, and 64 chunks a unit (a
     round's ops in two batches); the Blelloch lane repair (split point ops) at
     G = 1 to 256 with random flags, one block a window and clusters of 2, 4
-    and 8; the lane fix-up on W G = 3 x 37 lanes of T = 3."""
+    and 8; the lane fix-up (split point ops, blocks of 64 lanes) on W G =
+    3 x 37 lanes (a ragged last block) of T = 3 with clustered digits (few
+    lanes fix) and of T = 32 with uniform digits (most lanes fix), where no
+    bucket has two fixing lanes."""
     curve = (PALLAS, VESTA)[fid]
     spec = curve.base
     L = ffl.REP_LIMBS
@@ -403,15 +407,73 @@ def test_msm_phases_host_build(field_host_lib, fid):
                                                      reverse) == 0
             assert same(out, want), (G, reverse)
 
-    W, G, T, NB = 3, 37, 3, 17
-    dig = torch.as_tensor(np.sort(rng.choice([0, 2, 3, 8, 16], size=(W, G * T)), axis=-1))
-    buckets = _point_rows(curve, W * NB, 1, 6).reshape(3, L, W, NB)
-    inflow = _point_rows(curve, W * G, 2, 7).reshape(3, L, W, G)
-    got = buckets.clone()
-    assert field_host_lib.mbt_host_fixup(fid, got.data_ptr(), inflow.data_ptr(), dig.data_ptr(), W, G, T, NB) == 0
-    want = pk.padd_fixup_plain(curve, buckets.clone(), inflow, dig)
-    assert not same(want, buckets)
-    assert same(got, want)
+    W, G = 3, 37
+    sparse = np.sort(rng.choice([0, 2, 3, 8, 16], size=(W, G * 3)), axis=-1)
+    dense = np.sort(rng.integers(0, 75, size=(W, G * 32)), axis=-1)  # segments of ~16 positions
+    for dig, NB, least, most in ((sparse, 17, 1, 30), (dense, 75, 90, W * G)):
+        dig = torch.as_tensor(dig)
+        T = dig.shape[-1] // G
+        need = pk.fixup_need(dig, G)
+        w_idx, g_idx = need.nonzero(as_tuple=True)
+        fixed = w_idx * NB + dig[:, ::T][w_idx, g_idx]
+        assert least <= len(fixed) <= most, len(fixed)
+        assert len(set(fixed.tolist())) == len(fixed)  # no bucket fixed twice
+        buckets = _point_rows(curve, W * NB, 1, 6).reshape(3, L, W, NB)
+        inflow = _point_rows(curve, W * G, 2, 7).reshape(3, L, W, G)
+        want = pk.padd_fixup_plain(curve, buckets.clone(), inflow, dig)
+        assert not same(want, buckets)
+        for reverse in (0, 1):
+            got = buckets.clone()
+            assert field_host_lib.mbt_host_fixup(fid, got.data_ptr(), inflow.data_ptr(), dig.data_ptr(), W, G, T, NB,
+                                                 reverse) == 0
+            assert same(got, want), (T, reverse)
+            changed = (got != buckets).reshape(3 * L, W * NB).any(0).nonzero().flatten()
+            assert set(changed.tolist()) <= set(fixed.tolist()), (T, reverse)  # no other bucket written
+
+
+def _special_pairs(curve, n: int, seed: int):
+    """(3, 22, n) rows p, q of seeded projective points (random Z), lane i
+    by i % 6: p the identity, q the identity, both, q == p, q == -p (each q
+    with its own Z), a random pair."""
+    rng = random.Random(seed)
+    p = curve.base.p
+    aff = [hmul(curve, rng.randrange(1, 1 << 64), curve.generator) for _ in range(8)]
+
+    def proj(pt, neg=False):
+        if pt is None:
+            return (0, 1, 0)
+        z = rng.randrange(1, p)
+        return (pt[0] * z % p, (p - pt[1] if neg else pt[1]) * z % p, z)
+
+    ps, qs = [], []
+    for i in range(n):
+        a, b = aff[i % 8], aff[(i * 3 + 1) % 8]
+        kind = i % 6
+        ps.append(proj(None if kind in (0, 2) else a))
+        qs.append(proj(None if kind in (1, 2) else (a if kind in (3, 4) else b), neg=kind == 4))
+
+    def rows(pts):
+        return torch.stack([ffl.from_ints(curve.base, [pt[c] for pt in pts]) for c in range(3)]).permute(0, 2, 1)
+
+    return rows(ps).contiguous(), rows(qs).contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("fid", [0, 1], ids=IDS)
+def test_padd_host_build(field_host_lib, fid, n):
+    """K3's one-step add (points.cuh split::padd_lanes, host build: blocks
+    of 32 lanes, each a round of split ops, in order and with the blocks and
+    each phase's tasks reversed) equals padd_plain at one lane, ragged
+    last blocks (63, 65 and 130 lanes) and two full blocks (64), on identity lanes in
+    p, in q and in both, q == p and q == -p."""
+    curve = (PALLAS, VESTA)[fid]
+    p_rows, q_rows = _special_pairs(curve, n, 30 + n)
+    want = ffl.canon(curve.base, pk.padd_plain(curve, p_rows, q_rows).permute(0, 2, 1))
+    for reverse in (0, 1):
+        out = torch.empty_like(p_rows)
+        assert field_host_lib.mbt_host_padd(fid, p_rows.data_ptr(), q_rows.data_ptr(), out.data_ptr(), n, reverse) == 0
+        assert (out < 8192).all()
+        assert torch.equal(ffl.canon(curve.base, out.permute(0, 2, 1)), want), reverse
 
 
 def test_device_selection_and_no_fallback():
