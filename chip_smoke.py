@@ -24,7 +24,9 @@ Phases (any failure exits non-zero and prints no result):
      fix-up with few and with most lanes fixing; the weighting at D = 64
      and 4096, the repair at G = 16, 64, 256 and 4096); the one-step K5
      (which the verify no longer calls) on the first up-sweep level of the
-     recorded repair and seeded lanes; K7 (no caller in the system) on the first step of K6's
+     recorded repair and seeded lanes: 1, 33, 4,097 and 20,480 lanes per
+     curve with no lane, every lane and every third lane kept, and lazy q
+     rows; K7 (no caller in the system) on the first step of K6's
      recorded scan with q's Z row made explicit plus a seeded set with
      identity lanes on each curve, and seeded sets of 20,480 lanes and of
      the ragged 1, 33 and 4,097 lanes on each curve; K1 also on seeded
@@ -368,8 +370,10 @@ def kernel_work(name: str, args) -> tuple[float, float]:
         adds = int(((keep == 0) & (q_inf == 0)).sum())
         return carry.numel() * LIMB_BYTES + pos * (5 * L * LIMB_BYTES + 8), 13 * adds * OPS_PER_PRODUCT
     if name == "padd_select":
+        # flags and q read, out written; p read where a lane adds; 12
+        # products an add (b3 by additions, as every split add)
         adds = int((args[3] == 0).sum())
-        return 3 * n * point + 4 * n, 14 * adds * OPS_PER_PRODUCT
+        return (2 * n + adds) * point + 4 * n, 12 * adds * OPS_PER_PRODUCT
     keep, q_inf = args[3], args[4]
     adds = int(((keep == 0) & (q_inf == 0)).sum())
     q_rows = args[2].shape[0]  # 2 (K6) or 3 (K7)
@@ -509,9 +513,11 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
     and a seeded set per curve with identity lanes in p and q and both
     masks mixed; the one-step K5, which the verify no longer calls either,
     the first up-sweep level of every recorded lane repair (p the left
-    lanes, q the right ones, keep_q the right flags) and the same seeded
-    sets. K2 also gets B = 33, T = 5 in each field (a block with one live
-    transcript); K4 every recorded input at k = 1 and a seeded 1,500-lane
+    lanes, q the right ones, keep_q the right flags), the same seeded sets,
+    and per curve K3's seeded pairs below with no lane, every lane and
+    every third lane kept, and the 20,480 pairs with lazy q rows (every
+    second lane kept). K2 also gets B = 33, T = 5 in each field (a block
+    with one live transcript); K4 every recorded input at k = 1 and a seeded 1,500-lane
     set per curve at k = 1 and 13; the K6 scan, K3's weighting and fix-up
     and K5's repair the MSM's inputs, and per curve seeded ragged scans
     (W G = 111 and 90 lanes, T = 3 and 1), bucket arrays (W = 3, D = 64 and
@@ -579,9 +585,28 @@ def extra_inputs(rec: Recorder, msm_rec: Recorder, seed: int, dev) -> dict:
             keep = (torch.arange(n, device=dev) % 3 == 1).to(torch.int32)
             k7.append((curve, p, q, keep, (q[2, 0] == 0).to(torch.int32)))
             k3.append((curve, *seeded_pairs(curve, n, seed + 90 + 2 * n + i, dev)))
+            lane = torch.arange(n, device=dev)
+            seeded_k5 += [(*k3[-1], m.to(torch.int32)) for m in (lane < 0, lane >= 0, lane % 3 == 0)]
+        seeded_k5.append((curve, k3[-1][1], lazy_rows(curve.base, k3[-1][2]), (lane % 2 == 0).to(torch.int32)))
     return {"transcript_blocks": k2, "padd_mixed_select": k7, "padd_select": seeded_k5, "pdouble": k4,
             "padd_mixed_select2": k6, "padd_weight_sum": k3w, "padd_fixup": k3f, "padd_select_scan": k5s,
             "pow_const": k1_inputs(seed, dev), "padd": k3}
+
+
+def lazy_rows(spec, rows):
+    """The same points as (3, 22, n) rows with lazy limbs, lane i by i % 3:
+    x + x - x (limbs of 2^13 or more, values of 2^256 or more), x + p limb
+    by limb (values in [p, 2^256)), x itself."""
+    import torch
+
+    from mina_bridge_tpu_torch.fields import ffl
+
+    x = rows.permute(0, 2, 1)
+    n = x.shape[1]
+    big = ffl.sub(spec, ffl.add(spec, x, x), x)
+    above_p = x + ffl.from_ints(spec, [spec.p - 1] * n, x.device) + ffl.from_ints(spec, [1] * n, x.device)
+    kind = (torch.arange(n, device=x.device) % 3)[None, :, None]
+    return torch.where(kind == 0, big, torch.where(kind == 1, above_p, x)).permute(0, 2, 1).contiguous()
 
 
 def k1_inputs(seed: int, dev) -> list:

@@ -128,9 +128,10 @@ void lane_scan(const int64_t* carry, const int32_t* has_start, int64_t* out, int
   }
 }
 
-// padd_kernel and padd_fixup_kernel: the kernels' block programs
-// (split::padd_lanes, split::fixup_lanes) on the kernels' blocks of lanes
-// in turn, each phase's tasks in turn; with reverse, both last to first.
+// padd_kernel, padd_fixup_kernel and padd_select_kernel: the kernels'
+// block programs (split::padd_lanes, fixup_lanes, select_lanes) on the
+// kernels' blocks of lanes in turn, each phase's tasks in turn; with
+// reverse, both last to first.
 template <class Fn>
 void lane_blocks(int64_t n, int lanes, bool reverse, Fn fn) {
   const int64_t nb = (n + lanes - 1) / lanes;
@@ -155,6 +156,15 @@ void fixup_blocks(int64_t* buckets, const int64_t* inflow, const int64_t* dig, i
   std::vector<uint64_t> smem(words_of(pair_bytes(true)));
   lane_blocks(W * G, FIXUP_LANES, reverse, [&](int64_t l0, int m) {
     fixup_lanes<F>(Serial{reverse}, smem.data(), buckets, inflow, dig, l0, m, W, G, T, NB);
+  });
+}
+
+template <int F>
+void select_blocks(const int64_t* p, const int64_t* q, const int32_t* keep_q, int64_t* out, int64_t n, bool reverse) {
+  using namespace pts::split;
+  std::vector<uint64_t> smem(words_of(pair_bytes(true)));
+  lane_blocks(n, SELECT_LANES, reverse, [&](int64_t n0, int m) {
+    select_lanes<F>(Serial{reverse}, smem.data(), p, q, keep_q, out, n0, m, n);
   });
 }
 
@@ -205,7 +215,8 @@ extern "C" int mbt_host_binop(int field, int op, const int64_t* a, const int64_t
 // The one-thread point formulas on mul32, over rows layouts: p and out
 // (3, 22, n). op 0: p +mixed q with q (2, 22, n) affine (x, y) (K6's add;
 // q must not be the identity), 1: the doubling of p (K4's step), 2: the
-// complete add p + q with q (3, 22, n) (the one-step K5's padd_f).
+// complete add p + q with q (3, 22, n) (padd_f, which no kernel runs: the
+// one-thread oracle of the split add).
 extern "C" int mbt_host_points(int field, int op, const int64_t* p, const int64_t* q, int64_t* out,
                                int64_t n) {
   return field == 0 ? points<0>(op, p, q, out, n) : points<1>(op, p, q, out, n);
@@ -217,6 +228,15 @@ extern "C" int mbt_host_points(int field, int op, const int64_t* p, const int64_
 extern "C" int mbt_host_padd(int field, const int64_t* p, const int64_t* q, int64_t* out, int64_t n, int reverse) {
   if (n < 0) return 1;
   (field == 0 ? padd_blocks<0> : padd_blocks<1>)(p, q, out, n, reverse != 0);
+  return 0;
+}
+
+// K5's one-step select (points.cu, padd_select_kernel) with the kernel's
+// arguments: p, q, out (3, 22, n) rows, keep_q (n,) int32; reverse as above.
+extern "C" int mbt_host_select(int field, const int64_t* p, const int64_t* q, const int32_t* keep_q, int64_t* out,
+                               int64_t n, int reverse) {
+  if (n < 0) return 1;
+  (field == 0 ? select_blocks<0> : select_blocks<1>)(p, q, keep_q, out, n, reverse != 0);
   return 0;
 }
 

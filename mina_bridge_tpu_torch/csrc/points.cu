@@ -28,15 +28,16 @@
 // launch. Bound on this card: bytes at wide shapes (11-14 products a lane,
 // ~6-7 k 32-bit multiply-adds, against 1-1.6 KB of int64 limbs in and
 // out), launches and the dependent path at the narrow ones (the Horner
-// walk's one lane). With one thread a lane (padd_select) a wide launch has
-// ~1 warp a scheduler, and each thread's chain of ~25 products sets the
-// time instead (PERF.md). So the others split each lane over threads:
-// K7 over six (points.cuh, k7: its conversions and its add as a program
-// of six phases, one inlined mul32 for all its products); padd and the
-// fix-up take up to 32 and 64 lanes a block (split::padd_lanes, fixup_lanes:
-// one thread a coordinate in and out, the add as one round of split ops,
-// six threads a lane, two products deep), and the fix-up's lanes that fix
-// no bucket are dead ops that load and store nothing.
+// walk's one lane). With one thread a lane a wide launch has ~1 warp a
+// scheduler, and each thread's chain of ~25 products sets the time instead
+// (PERF.md). So each splits a lane over threads: K7 over six (points.cuh,
+// k7: its conversions and its add as a program of six phases, one inlined
+// mul32 for all its products); padd, the fix-up and padd_select take up to
+// 32, 64 and 32 lanes a block (split::padd_lanes, fixup_lanes,
+// select_lanes: one thread a coordinate in and out, the add as one round
+// of split ops, six threads a lane, two products deep), and the fix-up's
+// lanes that fix no bucket and padd_select's kept lanes are dead ops that
+// load and multiply nothing (a kept lane stores q).
 //
 // K4, K6 and the MSM phases are chains, and a chain is bound by the
 // latency of its instructions, not by bytes: K4 walks 13 doublings per
@@ -47,14 +48,13 @@
 // between levels) and runs in one launch instead of one launch a step. K4
 // and K6 take every product from one out-of-line fld::mul32 body (the
 // 32-bit carry-chain product, 1.43x faster than mul as a lone chain):
-// inlined, a scan step's ~20 products fill the instruction cache; K5
-// padd_select takes the same body. The weighting and the repair
-// split each point op over threads (points.cuh, split: two products deep,
-// six threads an add), so a level costs two products' latency and a wide
-// level fills the SMs; the weighting loads a block's buckets with
-// consecutive threads on consecutive buckets, and the repair spreads a
-// window over a cluster of up to 8 blocks (distributed shared memory for
-// the levels above a block). The K6 scan loads a step's operands when the
+// inlined, a scan step's ~20 products fill the instruction cache. The
+// weighting and the repair split each point op over threads (points.cuh,
+// split: two products deep, six threads an add), so a level costs two
+// products' latency and a wide level fills the SMs; the weighting loads a
+// block's buckets with consecutive threads on consecutive buckets, and the
+// repair spreads a window over a cluster of up to 8 blocks (distributed
+// shared memory for the levels above a block). The K6 scan loads a step's operands when the
 // step starts: a step is ~20 us of a warp's instructions, so the loads
 // land long before use (a cp.async prefetch of step t + 1 into shared
 // memory ran a few per cent slower on the H100; PERF.md).
@@ -106,18 +106,17 @@ __global__ void pdouble_kernel(const int64_t* __restrict__ p, int64_t* __restric
   pts::store_pt<F, MUL>(r, out, n, N);
 }
 
+// K5, the one-step select (points.cuh: split::select_lanes): `lanes` lanes
+// a block, a kept lane's q stored, the other lanes' adds one round of
+// split ops.
 template <int F>
-__global__ void padd_select_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
-                                   const int32_t* __restrict__ keep_q, int64_t* __restrict__ out,
-                                   int64_t N) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const Pt qp = pts::load_pt<F, MUL>(q, n, N);
-  if (keep_q[n]) {
-    pts::store_pt<F, MUL>(qp, out, n, N);
-    return;
-  }
-  pts::store_pt<F, MUL>(pts::padd_f<F, MUL>(pts::load_pt<F, MUL>(p, n, N), qp), out, n, N);
+__global__ void __launch_bounds__(split::THREADS, 2)
+    padd_select_kernel(const int64_t* __restrict__ p, const int64_t* __restrict__ q,
+                       const int32_t* __restrict__ keep_q, int64_t* __restrict__ out, int64_t N, int lanes) {
+  extern __shared__ uint64_t smem[];
+  int64_t n0;
+  const int m = block_lanes(N, lanes, n0);
+  split::select_lanes<F>(split::Threads{(int)threadIdx.x, (int)blockDim.x}, smem, p, q, keep_q, out, n0, m, N);
 }
 
 // K6 over a whole chunked scan. Lane n = w * G + g owns stream positions
@@ -205,12 +204,13 @@ __global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
 
 }  // namespace
 
-// The launch shape of K3's padd and fix-up over n lanes: up to `most`
-// lanes a block, six threads a lane rounded up to whole warps (one warp
-// at the Horner walk's one lane). scripts/torch_kernel_sweep.py --parts k3
-// took 32 lanes a block for padd (faster than 64 and 16 at 4,097 and
-// 20,480 lanes) and 64 for the fix-up (faster than 32 and 16 at the 2^16
-// MSM's shape); at one lane 32, 64 and 384 threads take the same time
+// The launch shape of K3's padd and fix-up and K5's one-step select over
+// n lanes: up to `most` lanes a block, six threads a lane rounded up to
+// whole warps (one warp at the Horner walk's one lane).
+// scripts/torch_kernel_sweep.py --parts k3 took 32 lanes a block for padd
+// (faster than 64 and 16 at 4,097 and 20,480 lanes) and 64 for the fix-up
+// (faster than 32 and 16 at the 2^16 MSM's shape); at one lane 32, 64 and
+// 384 threads take the same time; --parts k5 took 32 for the select
 // (PERF.md).
 struct LaneShape {
   int lanes, threads;
@@ -260,17 +260,27 @@ extern "C" int mbt_pdouble(int field, const int64_t* p, int64_t* out, int64_t N,
   return (int)cudaGetLastError();
 }
 
+// K5's one-step select at a given shape: `lanes` lanes a block of
+// `threads` threads.
+extern "C" int mbt_padd_select_at(int field, const int64_t* p, const int64_t* q, const int32_t* keep_q, int64_t* out,
+                                  int64_t N, int lanes, int threads, void* stream) {
+  if (N < 0 || !shape_ok({lanes, threads})) return (int)cudaErrorInvalidValue;
+  if (N > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t smem = split::pair_bytes(true);  // 37,632 bytes
+    if (field == 0)
+      padd_select_kernel<0><<<blocks_for(N, lanes), threads, smem, s>>>(p, q, keep_q, out, N, lanes);
+    else
+      padd_select_kernel<1><<<blocks_for(N, lanes), threads, smem, s>>>(p, q, keep_q, out, N, lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
 // keep_q: (N,) int32.
 extern "C" int mbt_padd_select(int field, const int64_t* p, const int64_t* q, const int32_t* keep_q,
                                int64_t* out, int64_t N, void* stream) {
-  if (N > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (field == 0)
-      padd_select_kernel<0><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, keep_q, out, N);
-    else
-      padd_select_kernel<1><<<blocks_for(N, THREADS), THREADS, 0, s>>>(p, q, keep_q, out, N);
-  }
-  return (int)cudaGetLastError();
+  const LaneShape sh = lane_shape(N > 0 ? N : 1, split::SELECT_LANES);
+  return mbt_padd_select_at(field, p, q, keep_q, out, N, sh.lanes, sh.threads, stream);
 }
 
 // carry: (3, 22, W, G); xy: (2, 22, W, N) with N = G * T; keep_q, q_inf:

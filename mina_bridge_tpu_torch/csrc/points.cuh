@@ -9,13 +9,13 @@
 // way. K7 runs the mixed add as a program of field operations (k7 below),
 // with one inlined mul32 for all of its products.
 //
-// Below the formulas are K3's one-step add and the MSM's three one-launch
-// phases (K3's bucket weighting and fix-up, K5's lane scan) as programs of
-// split point operations (namespace split: each add and doubling over
-// several threads, phases between block barriers). points.cu runs them in
-// its kernels; field_host.cpp runs the same code with every phase's tasks
-// in turn (split::Serial), so the CPU tests check their index arithmetic
-// and that no phase's tasks race.
+// Below the formulas are K3's one-step add, K5's one-step select and the
+// MSM's three one-launch phases (K3's bucket weighting and fix-up, K5's
+// lane scan) as programs of split point operations (namespace split: each
+// add and doubling over several threads, phases between block barriers).
+// points.cu runs them in its kernels; field_host.cpp runs the same code
+// with every phase's tasks in turn (split::Serial), so the CPU tests check
+// their index arithmetic and that no phase's tasks race.
 #pragma once
 #include <stddef.h>
 
@@ -63,7 +63,9 @@ PHD Fe mul_b3(const Fe& a) {
   return fld::mulx<F, P>(a, fld::Params<F>::b3());
 }
 
-// Complete addition (RCB16 Algorithm 7, a = 0).
+// Complete addition (RCB16 Algorithm 7, a = 0) on one thread. No kernel
+// runs it: the host build's op 2 keeps it as the one-thread oracle that
+// the CPU tests hold the split add against.
 template <int F, int P>
 PHD Pt padd_f(const Pt& p, const Pt& q) {
   using fld::add;
@@ -173,9 +175,9 @@ PHD Pt identity() {
 }
 
 // ---------------------------------------------------------------------------
-// Split point operations: K3's one-step add, the MSM's bucket weighting
-// and fix-up (K3) and its lane repair (K5) run every complete add and
-// doubling over several threads.
+// Split point operations: K3's one-step add, K5's one-step select, the
+// MSM's bucket weighting and fix-up (K3) and its lane repair (K5) run
+// every complete add and doubling over several threads.
 //
 // Points and temporaries sit in shared memory as Montgomery words (Vec).
 // A round of operations (Op: p + q or 2 p, each on points of a Vec) runs
@@ -734,7 +736,7 @@ PHD Work block_work(uint64_t* smem, size_t words) {
 constexpr int PAIR_SLOTS = 2 * PT_SLOTS;
 
 // A block's shared memory: JOBS lanes' two points, the round scratch, and
-// (the fix-up) JOBS bucket indexes.
+// (the fix-up) JOBS bucket indexes or (the select) JOBS flags.
 constexpr size_t pair_bytes(bool fixup) { return block_bytes(PAIR_SLOTS, JOBS, fixup ? 2 * JOBS : 0); }
 
 // Lanes a block of padd and of the fix-up (points.cu, lane_shape: the
@@ -793,6 +795,77 @@ PHD void fixup_lanes(const E& ex, uint64_t* smem, int64_t* buckets, const int64_
       ex, wk, m, [&](int o) { return Op{ADD, PRef{v, 0, o}, PRef{v, PT_SLOTS, o}, at[o] >= 0}; },
       [&](int o, int c, const Fe& r) {
         if (at[o] >= 0) fld::to_limbs<F, fld::MUL32_CALL>(r, buckets + c * bs + at[o], nb);
+      });
+}
+
+// ---------------------------------------------------------------------------
+// K5's one-step select (padd_select): out = keep_q ? q : p + q over m <=
+// JOBS consecutive lanes a block (SELECT_LANES), the fix-up's program with
+// keep_q as the dead flag: a first pass puts the lanes' flags where the
+// fix-up keeps its bucket indexes; a live lane's p and q are converted one
+// thread a (coordinate, lane) and added in one FLAGGED round of split ops
+// (a batch with no live lane skips the products); a kept lane loads and
+// multiplies nothing and stores q as canonical limbs (canon_limbs), one
+// thread a (coordinate, lane), where a live lane stores its sum. The two
+// stores never touch the same lane. (Listing a block's live lanes first,
+// so that only their threads run products, was no faster: where live
+// lanes are sparse a block's time is its dependent chain of loads,
+// products and barriers, not its products' count; PERF.md.)
+// ---------------------------------------------------------------------------
+
+// Lanes a block of the select (points.cu, lane_shape). In
+// scripts/torch_kernel_sweep.py --parts k5, 32 ran within 1% of 16 and
+// 10-17% faster than 64 at 4,097 and 10,240 lanes, within 2% of 64 and
+// 12% faster than 16 at 20,480 (PERF.md).
+constexpr int SELECT_LANES = 32;
+
+// a < p, a as four 64-bit words.
+template <int F>
+PHD bool below_p(const Fe& a) {
+  const Fe p = fld::Params<F>::p();
+  for (int j = 3; j > 0; j--)
+    if (a.w[j] != p.w[j]) return a.w[j] < p.w[j];
+  return a.w[0] < p.w[0];
+}
+
+// 22 limbs (stride apart) -> canonical limbs at o: a value below p (as
+// canonical limbs are) is re-split without a product, the same limbs as a
+// copy; a larger one (lazy limbs) goes through Montgomery form.
+template <int F>
+PHD void canon_limbs(const int64_t* x, int64_t* o, int64_t stride) {
+  Fe lo, hi;
+  fld::limbs_to_words(x, stride, lo, hi);
+  if (fld::is_zero<F>(hi) && below_p<F>(lo))
+    fld::words_to_limbs(lo, o, stride);
+  else
+    fld::to_limbs<F, fld::MUL32_CALL>(to_mont<F>(x, stride), o, stride);
+}
+
+// keep_q ? q : p + q over lanes n0 .. n0 + m - 1 of (3, 22, N) rows; out
+// the same, keep_q (N,) int32.
+template <int F, class E>
+PHD void select_lanes(const E& ex, uint64_t* smem, const int64_t* p, const int64_t* q, const int32_t* keep_q,
+                      int64_t* out, int64_t n0, int m, int64_t N) {
+  const Vec v = pair_items(smem);
+  const Work wk = pair_work(smem);
+  int32_t* keep = wk.live + JOBS;  // the fix-up's bucket indexes
+  const int64_t cs = (int64_t)fld::REP_LIMBS * N;
+  ex.tasks(m, [&](int i) { keep[i] = keep_q[n0 + i] != 0; });
+  ex.sync();
+  ex.tasks(PAIR_SLOTS * m, [&](int t) {
+    const int i = t % m, k = t / m;
+    if (keep[i]) return;
+    v.put(k, i, to_mont<F>((k < PT_SLOTS ? p + k * cs : q + (k - PT_SLOTS) * cs) + n0 + i, N));
+  });
+  ex.sync();
+  run<F, true>(
+      ex, wk, m, [&](int o) { return Op{ADD, PRef{v, 0, o}, PRef{v, PT_SLOTS, o}, !keep[o]}; },
+      [&](int o, int c, const Fe& r) {
+        const int64_t at = c * cs + n0 + o;
+        if (keep[o])
+          canon_limbs<F>(q + at, out + at, N);
+        else
+          fld::to_limbs<F, fld::MUL32_CALL>(r, out + at, N);
       });
 }
 

@@ -4,7 +4,7 @@ Counterpart of mina_bridge_tpu/curves/pallas_kernels.py (padd, pdouble,
 padd_select, padd_mixed_select2, padd_mixed_select, all through
 `_pallas_apply`). The CUDA kernels are in csrc/points.cu, bounds-checked
 (see the note there on what bounds them): one thread per lane (K4, the K6
-scan, the one-step K5), or (K3's add, weighting and fix-up, K5's lane
+scan), or (K3's add, weighting and fix-up, K5's one-step select and lane
 repair, K7) each point op split over several threads.
 
 A point batch is (3, 22, N) int64: coordinates, limbs, lanes. K6's q is
@@ -15,9 +15,10 @@ runs all T steps of the chunked segmented scan, and the one-step
 `padd_mixed_select2` is its T = 1 case; K3 runs the bucket weighting
 (`padd_weight_sum`) and the fix-up of the buckets that cross a lane
 (`padd_fixup`) beside the one-step `padd`; K5 runs the whole Blelloch lane
-repair (`padd_select_scan`) beside the one-step `padd_select`. The
-one-step `padd_select` and K7 have no caller on the verify's path (K7 has
-none in the JAX package either). Each wrapper runs its `*_plain` version
+repair (`padd_select_scan`) beside the one-step `padd_select` (a kept
+lane stores q, the others add in one round of split ops). The one-step
+`padd_select` and K7 have no caller on the verify's path (K7 has none in
+the JAX package either). Each wrapper runs its `*_plain` version
 (curves/curve.py formulas in plain torch ops, in the kernel's order of
 additions) on a CPU tensor and launches its kernel on a CUDA tensor, or
 raises. The kernels write canonical limbs; the plain versions write REP

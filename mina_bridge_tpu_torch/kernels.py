@@ -54,6 +54,7 @@ SOURCES = {
         "mbt_padd_fixup": [_I, _V, _V, _V, _L, _L, _L, _L, _V],
         "mbt_padd_at": [_I, _V, _V, _V, _L, _I, _I, _V],
         "mbt_padd_fixup_at": [_I, _V, _V, _V, _L, _L, _L, _L, _I, _I, _V],
+        "mbt_padd_select_at": [_I, _V, _V, _V, _V, _L, _I, _I, _V],
         "mbt_padd_select_scan": [_I, _V, _V, _V, _V, _L, _L, _V],
         "mbt_split_launch_info": [_I, _L, _L, _L, _L, _V],
     },

@@ -25,7 +25,11 @@ K3's bucket weighting (`padd_weight_sum`, W 20, D 4,096), K3's fix-up
 (`padd_select_scan`, W 20, G 1,024) on the inputs one MSM over the 2^16
 Pallas SRS gives them (seeded scalars, recorded through this checkout's
 pmsm), and the weighting and the repair on seeded canonical limbs on
-each curve (the repair's flags set at a fifth of the lanes). Each of
+each curve (the repair's flags set at a fifth of the lanes); K5's
+one-step select (`padd_select`) at its recorded input, the repair's first
+up-sweep level on that MSM (10,240 lanes: p the left lanes, q the right
+ones, keep_q the right flags), and at 4,097 and 20,480 lanes of seeded
+canonical limbs with every third lane kept. Each of
 `reps` runs is a CUDA-event mean over 20 launches, queued while the
 device sleeps (~25 ms), so that the events time the device and not the
 host's queueing; the outputs are checked exact against the plain
@@ -196,7 +200,8 @@ def msm_phase_inputs(points, seed: int) -> dict:
 def time_kernels(reps: int, seed: int, points) -> dict:
     """K1 at 160 and 512 elements, K7 at 20,480 lanes, K3's one-step add at
     1 and 4,097 lanes, K3's weighting and fix-up and K5's repair at the
-    MSM's shapes: median, min and max of `reps` CUDA-event means of 20
+    MSM's shapes, K5's one-step select at its recorded input and at 4,097
+    and 20,480 lanes: median, min and max of `reps` CUDA-event means of 20
     launches each."""
     import torch
 
@@ -267,6 +272,15 @@ def time_kernels(reps: int, seed: int, points) -> dict:
         sets[f"k5a_{tag}_ms"] = ("padd_select_scan", (curve, canonical_rows(rng, (W, G), "cuda"), flags))
     fix = msm["padd_fixup"]
     sets["k3c_msm_ms"] = ("padd_fixup", fix)
+    curve, carry, flags = msm["padd_select_scan"]
+    halves = carry.reshape(3, 22, W, G // 2, 2)
+    keep = flags.reshape(W, G // 2, 2)[..., 1].reshape(-1).to(torch.int32)
+    sets["k5b_msm_ms"] = ("padd_select", (curve, halves[..., 0].reshape(3, 22, -1).contiguous(),
+                                          halves[..., 1].reshape(3, 22, -1).contiguous(), keep))
+    for n in (4097, 20480):
+        third = (torch.arange(n, device="cuda") % 3 == 0).to(torch.int32)
+        sets[f"k5b_{n}_ms"] = ("padd_select", (PALLAS, canonical_rows(rng, (n,), "cuda"),
+                                               canonical_rows(rng, (n,), "cuda"), third))
     for key, (name, args) in sets.items():
         kern, plain = getattr(pk, name), getattr(pk, name + "_plain")
         fresh = (args[0], args[1].clone(), *args[2:])  # the fix-up works in place
@@ -274,6 +288,7 @@ def time_kernels(reps: int, seed: int, points) -> dict:
             raise RuntimeError(f"{name} disagrees with its plain version ({key})")
         out[key] = stats(lambda kern=kern, args=args: kern(*args))
     out["k3c_msm_fixes"] = int(pk.fixup_need(fix[3], fix[2].shape[-1]).sum())
+    out["k5b_msm_adds"] = int((keep == 0).sum())
     if hasattr(pk, "split_launch_info"):
         out["launch"] = {name: pk.split_launch_info(name, W, n) for name, n in
                          (("padd_weight_sum", D), ("padd_select_scan", G))}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Sweep K1 (the power chain), K7 (the mixed add with select) and K3's
-split adds on one card.
+"""Sweep K1 (the power chain), K7 (the mixed add with select), K3's
+split adds and K5's one-step select on one card.
 
-    python3 scripts/torch_kernel_sweep.py [--parts k1,k7,k7inputs,k3] [--reps 20]
+    python3 scripts/torch_kernel_sweep.py [--parts k1,k7,k7inputs,k3,k5] [--reps 20]
 
 k1: K1 at the verify's two batch sizes (160 and 512 elements) and
 e = p - 2 in each field: csrc/k1_sweep.cu for every window width w in 3,
@@ -42,6 +42,16 @@ and store coalesced), the fix-up with every digit distinct (no lane
 fixes: the digit reads alone) and with lane g fixing bucket g of G + 1
 (every lane fixes, bucket loads and stores coalesced). Each shape and
 input is checked exact against the plain version on both curves first.
+
+k5: the launch shape of K5's one-step select (points.cu,
+`mbt_padd_select_at`): 64, 32 and 16 lanes a block (six threads a lane)
+at 4,097, 10,240 and 20,480 lanes of seeded points (identity lanes in p
+and q) with every third lane kept, each checked exact against
+`padd_select_plain` on both curves first; the wrapper's own shape with
+every third lane, no lane, every lane and all but every tenth lane kept
+(does its time follow its adds?); and the kernel's registers, spills
+and shared memory as ptxas reported them where this process built
+points.cu.
 
 Times are CUDA-event means over `reps` launches, queued while the device
 sleeps, so they time the device and not the host's queueing. Prints one
@@ -266,6 +276,68 @@ def sweep_k3(reps: int, card: str, emit) -> None:
               "ms": cuda_ms(lambda: pk.padd_fixup(PALLAS, buckets, inflow, d), reps)})
 
 
+def sweep_k5(reps: int, card: str, emit) -> None:
+    import torch
+
+    from mina_bridge_tpu_torch import kernels
+    from mina_bridge_tpu_torch.curves import point_kernels as pk
+    from mina_bridge_tpu_torch.curves.host import PALLAS, VESTA
+    from mina_bridge_tpu_torch.fields import ffl
+    from mina_bridge_tpu_torch.fields.chain_kernel import field_id
+
+    lib = kernels.lib("points")
+
+    def canon(c, rows):
+        return ffl.canon(c.base, rows.permute(0, 2, 1))
+
+    def select_at(c, p, q, keep, out, lanes, threads):
+        rc = lib.mbt_padd_select_at(field_id(c.base), p.data_ptr(), q.data_ptr(), keep.data_ptr(), out.data_ptr(),
+                                    p.shape[-1], lanes, threads, kernels.stream())
+        if rc != 0:
+            raise RuntimeError(f"K5 launch failed: cudaError {rc}")
+
+    for n in (4097, 10240, 20480):
+        pq = {c.name: (point_rows(c, n, 13 + n, 7, True).cuda(), point_rows(c, n, 14 + n, 5, True).cuda())
+              for c in (PALLAS, VESTA)}
+        keep = (torch.arange(n, device="cuda") % 3 == 0).to(torch.int32)
+        out = torch.empty((3, 22, n), dtype=torch.int64, device="cuda")
+        for lanes in (64, 32, 16):
+            for c in (PALLAS, VESTA):
+                p, q = pq[c.name]
+                select_at(c, p, q, keep, out, lanes, 6 * lanes)
+                if not torch.equal(canon(c, out), canon(c, pk.padd_select_plain(c, p, q, keep))):
+                    raise RuntimeError(f"padd_select at {lanes} lanes a block disagrees on {c.name}")
+            p, q = pq[PALLAS.name]
+            emit({"kernel": "padd_select", "lanes": n, "kept": "every third", "lanes_per_block": lanes,
+                  "threads": 6 * lanes, "exact": True, "card": card,
+                  "ms": cuda_ms(lambda: select_at(PALLAS, p, q, keep, out, lanes, 6 * lanes), reps)})
+        lane = torch.arange(n, device="cuda")
+        for kept, m in (("every third", lane % 3 == 0), ("none", lane < 0), ("all", lane >= 0),
+                        ("all but every tenth", lane % 10 != 0)):
+            m = m.to(torch.int32)
+            if not torch.equal(canon(PALLAS, pk.padd_select(PALLAS, p, q, m)),
+                               canon(PALLAS, pk.padd_select_plain(PALLAS, p, q, m))):
+                raise RuntimeError(f"padd_select disagrees at {n} lanes, {kept} kept")
+            emit({"kernel": "padd_select (wrapper)", "lanes": n, "kept": kept, "adds": int((m == 0).sum()),
+                  "exact": True, "card": card, "ms": cuda_ms(lambda: pk.padd_select(PALLAS, p, q, m), reps)})
+    emit({"kernel": "padd_select", "ptxas": ptxas_lines(kernels.build_log.get("points", ""), "padd_select_kernel"),
+          "shared_bytes_a_block": 37632, "card": card})  # split::pair_bytes(true), the launch's dynamic share
+
+
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """ptxas -v's lines for the entry functions whose name holds `kernel`:
+    from "Compiling entry function" to its "Used ... registers" line."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep:
+            lines.append(line.strip())
+            if "Used" in line and "registers" in line:
+                keep = False
+    return lines
+
+
 def point_rows(curve, n: int, seed: int, identity_every: int, projective: bool):
     """(3, 22, n) rows of 8 seeded multiples of the generator (canonical
     limbs), scaled by a random Z or with Z = 1, the identity every few lanes."""
@@ -379,7 +451,7 @@ def sweep_k1(reps: int, card: str, emit, fields=("fp", "fq")) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="k1,k7,k3")
+    ap.add_argument("--parts", default="k1,k7,k3,k5")
     ap.add_argument("--fields", default="fp,fq", help="K1's fields")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -396,7 +468,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     parts = args.parts.split(",")
-    need = {"k1": ("pow_chain", "k1_sweep"), "k7": ("points", "k7_split"), "k7inputs": ("points",), "k3": ("points",)}
+    need = {"k1": ("pow_chain", "k1_sweep"), "k7": ("points", "k7_split"), "k7inputs": ("points",), "k3": ("points",),
+            "k5": ("points",)}
     kernels.build_all(tuple({s for part in parts for s in need[part]}))
     results = []
 
@@ -412,6 +485,8 @@ def main() -> int:
         sweep_k7_inputs(args.reps, card, emit)
     if "k3" in parts:
         sweep_k3(args.reps, card, emit)
+    if "k5" in parts:
+        sweep_k5(args.reps, card, emit)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "kernel_sweep.json").write_text(json.dumps(results, indent=1))

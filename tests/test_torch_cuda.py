@@ -166,6 +166,39 @@ def test_padd(dev, curve, n):
                        ffl.canon(curve.base, pk.padd_plain(curve, p, q).permute(0, 2, 1)))
 
 
+def _lazy(spec, rows):
+    """The same points as (3, 22, n) rows with lazy limbs, lane i by i % 3:
+    x + x - x (limbs of 2^13 or more, values of 2^256 or more), x + p limb
+    by limb (values in [p, 2^256)), x itself."""
+    x = rows.permute(0, 2, 1)
+    n = x.shape[1]
+    big = ffl.sub(spec, ffl.add(spec, x, x), x)
+    above_p = x + ffl.from_ints(spec, [spec.p - 1] * n, x.device) + ffl.from_ints(spec, [1] * n, x.device)
+    kind = (torch.arange(n, device=x.device) % 3)[None, :, None]
+    return torch.where(kind == 0, big, torch.where(kind == 1, above_p, x)).permute(0, 2, 1).contiguous()
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "third", "lazy"])
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_padd_select(dev, curve, mask):
+    """K5's one-step select (a block of lanes a FLAGGED round of split adds,
+    a kept lane storing q) at 4,097 lanes (a ragged last block) with no
+    lane kept, every lane, every third, and lazy q rows on kept and live
+    lanes (every second kept), with identity lanes, q == p and q == -p.
+    Writes canonical limbs."""
+    n = 4097
+    p, q = (x.to(dev) for x in _pairs(curve, n, 60 + n))
+    lane = torch.arange(n, device=dev)
+    keep = {"none": lane < 0, "all": lane >= 0, "third": lane % 3 == 0, "lazy": lane % 2 == 0}[mask]
+    keep = keep.to(torch.int32)
+    if mask == "lazy":
+        q = _lazy(curve.base, q)
+    got = pk.padd_select(curve, p, q, keep)
+    assert bool((got < 8192).all())
+    assert torch.equal(ffl.canon(curve.base, got.permute(0, 2, 1)),
+                       ffl.canon(curve.base, pk.padd_select_plain(curve, p, q, keep).permute(0, 2, 1)))
+
+
 @pytest.mark.parametrize("n", [1, 33, 4097, 20480])
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
 def test_padd_mixed_select(dev, curve, n):

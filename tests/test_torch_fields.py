@@ -170,7 +170,9 @@ def field_host_lib(tmp_path_factory):
     lib.mbt_host_fixup.argtypes = [ctypes.c_int, V, V, V, I64, I64, I64, I64, ctypes.c_int]
     lib.mbt_host_lane_scan.argtypes = [ctypes.c_int, V, V, V, I64, I64, ctypes.c_int]
     lib.mbt_host_padd.argtypes = [ctypes.c_int, V, V, V, I64, ctypes.c_int]
-    for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan, lib.mbt_host_padd):
+    lib.mbt_host_select.argtypes = [ctypes.c_int, V, V, V, V, I64, ctypes.c_int]
+    for fn in (lib.mbt_host_weight_sum, lib.mbt_host_fixup, lib.mbt_host_lane_scan, lib.mbt_host_padd,
+               lib.mbt_host_select):
         fn.restype = ctypes.c_int
     return lib
 
@@ -474,6 +476,48 @@ def test_padd_host_build(field_host_lib, fid, n):
         assert field_host_lib.mbt_host_padd(fid, p_rows.data_ptr(), q_rows.data_ptr(), out.data_ptr(), n, reverse) == 0
         assert (out < 8192).all()
         assert torch.equal(ffl.canon(curve.base, out.permute(0, 2, 1)), want), reverse
+
+
+def _lazy_rows(spec, rows):
+    """The same points as (3, 22, n) rows with lazy limbs, lane i by i % 3:
+    x + x - x (limbs of 2^13 or more, values of 2^256 or more), x + p
+    limb by limb (values in [p, 2^256)), x itself."""
+    x = rows.permute(0, 2, 1)
+    n = x.shape[1]
+    big = ffl.sub(spec, ffl.add(spec, x, x), x)
+    above_p = x + ffl.from_ints(spec, [spec.p - 1] * n) + ffl.from_ints(spec, [1] * n)
+    kind = (torch.arange(n) % 3)[None, :, None]
+    return torch.where(kind == 0, big, torch.where(kind == 1, above_p, x)).permute(0, 2, 1).contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 65, 130])
+@pytest.mark.parametrize("fid", [0, 1], ids=IDS)
+def test_padd_select_host_build(field_host_lib, fid, n):
+    """K5's one-step select (points.cuh split::select_lanes, host build: its
+    blocks of lanes, each a FLAGGED round of split adds, in order and with
+    the blocks and each phase's tasks reversed) equals padd_select_plain
+    with no lane kept, every lane, every third and the first 64 (whole
+    blocks with no add, whose rounds skip the products), on identity lanes,
+    q == p and q == -p; and with lazy q rows (limbs of 2^13 or more, values
+    of p or more) on kept and on live lanes. Writes canonical limbs."""
+    curve = (PALLAS, VESTA)[fid]
+    spec = curve.base
+    p_rows, q_rows = _special_pairs(curve, n, 50 + n)
+    lane = torch.arange(n)
+    masks = {"none": lane < 0, "all": lane >= 0, "third": lane % 3 == 0, "block": lane < 64}
+    cases = [(name, q_rows, m) for name, m in masks.items()]
+    q_lazy = _lazy_rows(spec, q_rows)
+    assert (q_lazy >= 8192).any()
+    cases.append(("lazy", q_lazy, lane % 2 == 0))
+    for name, q, keep in cases:
+        keep = keep.to(torch.int32)
+        want = ffl.canon(spec, pk.padd_select_plain(curve, p_rows, q, keep).permute(0, 2, 1))
+        for reverse in (0, 1):
+            out = torch.empty_like(p_rows)
+            assert field_host_lib.mbt_host_select(fid, p_rows.data_ptr(), q.data_ptr(), keep.data_ptr(),
+                                                  out.data_ptr(), n, reverse) == 0
+            assert (out < 8192).all(), (name, reverse)
+            assert torch.equal(ffl.canon(spec, out.permute(0, 2, 1)), want), (name, reverse)
 
 
 def test_device_selection_and_no_fallback():
